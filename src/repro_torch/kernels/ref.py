@@ -1,0 +1,101 @@
+"""Plain-torch versions of the port's kernels.
+
+``crms_grid_plain`` repeats the CUDA kernel's float32 arithmetic step for step
+(same streaming logsumexp, Stirling log n!, sentinel and operation order); the
+CPU path of ``ops.crms_grid`` runs it and the tests hold the kernel to it.
+``crms_grid_terms``/``crms_grid_utility`` are the float64 oracle: Eq. (1) ->
+μ -> exact Erlang-C Ws -> Eq. (8) utility.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import queueing
+from repro_torch.core.perf_model import eq1_latency
+
+F32 = torch.float32
+
+MAX_N = 128  # container counts the kernel's k-sum covers (edge scenarios: N <= ~40)
+HALF_LOG_2PI = 0.91893853320467274178  # 0.5 * log(2π), rounded to f32 on use
+WS_UNSTABLE = 1e9  # ws sentinel for ρ >= 1
+
+
+def _logaddexp(x, y):
+    """max + log1p(exp(-|x - y|)), with x + y where the difference is NaN."""
+    delta = x - y
+    out = torch.maximum(x, y) + torch.log1p(torch.exp(-torch.abs(delta)))
+    return torch.where(torch.isnan(delta), x + y, out)
+
+
+def crms_grid_plain(kappa, lam, xbar, n, c, m, *, caps_cpu, power_span, alpha, beta,
+                    reduce: str = "sum"):
+    """float32 Eq. (8) utility of a (B, M) candidate grid: (B,) for
+    ``reduce="sum"``, per-app terms (B, M) for ``reduce="per_app"``. Unstable
+    lanes (ρ >= 1) carry ws = 1e9."""
+    if reduce not in ("sum", "per_app"):
+        raise ValueError(f"reduce must be 'sum' or 'per_app', got {reduce!r}")
+    kappa = kappa.to(F32)
+    k1, k2, k3 = kappa[:, 0], kappa[:, 1], kappa[:, 2]
+    lam, xbar = lam.to(F32), xbar.to(F32)
+    n, c, m = n.to(F32), c.to(F32), m.to(F32)
+
+    # Divisions are tensor by tensor: torch evaluates `scalar / tensor` as a
+    # reciprocal times the scalar, and on CUDA `tensor / scalar` as a product
+    # with the scalar's reciprocal — each one rounding more than the kernel's
+    # single division, which near rho -> 1 the Erlang tail amplifies ~1/(1-rho).
+    d_ms = k1 / (1.0 - torch.exp(-k2 * c)) + torch.exp(k3 / m)
+    mu = torch.full_like(d_ms, 1000.0) / (xbar * d_ms)
+    a = lam / mu
+    rho = lam / (n * mu)
+    rho_s = torch.clamp(rho, max=1.0 - 1e-6)
+    log_a = torch.log(a)
+
+    # log Σ_{k=0}^{n-1} a^k/k! as a streaming logsumexp over k (running max,
+    # rescaled running sum, log k!); the k=0 term is log 1 = 0
+    run_max = torch.zeros_like(a)
+    run_sum = torch.ones_like(a)
+    log_fact = torch.zeros((), dtype=F32, device=a.device)
+    ks = torch.arange(1, MAX_N, dtype=F32, device=a.device)
+    for kf in ks:
+        log_fact = log_fact + torch.log(kf)
+        term = kf * log_a - log_fact
+        valid = n > kf
+        new_max = torch.where(valid, torch.maximum(run_max, term), run_max)
+        run_sum = run_sum * torch.exp(run_max - new_max) + torch.where(
+            valid, torch.exp(term - new_max), 0.0
+        )
+        run_max = new_max
+    log_head = run_max + torch.log(run_sum)
+
+    # lgamma(n+1) via Stirling (n >= 1 here)
+    nn = torch.clamp(n, min=1.0)
+    log_nfact = (nn + 0.5) * torch.log(nn) - nn + HALF_LOG_2PI + 1.0 / (12.0 * nn)
+    log_tail = n * log_a - log_nfact - torch.log1p(-rho_s)
+    log_pi0 = -_logaddexp(log_head, log_tail)
+    log_lq = n * log_a - log_nfact + torch.log(rho_s) - 2.0 * torch.log1p(-rho_s) + log_pi0
+    ls = torch.exp(log_lq) + a
+    ws = ls / lam
+    ws = torch.where(rho < 1.0, ws, WS_UNSTABLE)
+
+    dp = power_span * n * c / torch.full_like(c, caps_cpu)
+    util = alpha * ws + beta * dp / lam
+    return util if reduce == "per_app" else util.sum(dim=1)
+
+
+def crms_grid_terms(kappa, lam, xbar, n, c, m, caps_cpu, power_span, alpha, beta):
+    """Per-app utility terms (B, M) of Eq. (8) in float64. Unstable apps come
+    back as +inf."""
+    kappa, lam, xbar, n, c, m = (t.to(torch.float64) for t in (kappa, lam, xbar, n, c, m))
+    d_ms = eq1_latency((kappa[:, 0], kappa[:, 1], kappa[:, 2]), c, m)
+    mu = 1000.0 / (xbar * d_ms)
+    ws = queueing.erlang_ws(n, lam.expand(n.shape), mu)
+    dp = power_span * n * c / caps_cpu
+    return alpha * ws + beta * dp / lam
+
+
+def crms_grid_utility(kappa, lam, xbar, n, c, m, caps_cpu, power_span, alpha, beta):
+    """Per-candidate float64 utility (B,): the row sum of ``crms_grid_terms``."""
+    return torch.sum(
+        crms_grid_terms(kappa, lam, xbar, n, c, m, caps_cpu, power_span, alpha, beta),
+        dim=-1,
+    )
