@@ -7,8 +7,10 @@ Phases, one line of numbers each; any failed check raises and the exit code
 is non-zero:
 
   1. device  — the CUDA device's name and nvidia-smi's name/power limit.
-  2. build   — compiles the crms_grid CUDA kernel from the checkout's sources.
-  3. kernel  — the kernel against its plain-torch version on numpy-seeded
+  2. build   — compiles the crms_grid and flash_attention CUDA kernels from
+               the checkout's sources, both nvcc runs at once; ptxas'
+               registers and spills.
+  3. kernel  — crms_grid against its plain-torch version on numpy-seeded
                inputs at the main path's shape (72, 64) in per-app mode and a
                search-sized (20000, 64) in sum mode: rtol 1e-5 on lanes with
                rho <= 0.99, 1e-4 on all stable lanes (float32 with CUDA's
@@ -23,15 +25,40 @@ is non-zero:
                per refinement iteration.
   5. vector  — crms_priority (a per-app alpha vector) at M=8, which evaluates
                the grid with the float64 oracle, so it launches no kernel.
+  6. flash   — the flash-attention kernel against its plain version on
+               numpy-seeded inputs: the serving path's shape (B 4, S 512, KV 1,
+               G 8, hd 256, causal) in bf16 and f32, (1, 256, 4, 1, 128)
+               causal and the padding case (1, Sq 70, Skv 130, 2, 2, 32)
+               non-causal; atol/rtol 2e-5 in f32, 3e-2 in bf16 (the
+               reference's bar), and in bf16 each element within one ulp of
+               the plain version's with fewer than 1 % differing. At the
+               path's shape: the kernel's, the plain
+               version's and scaled_dot_product_attention's times (CUDA
+               events) and the lower bound from the shapes.
+  7. serve   — the port's Engine on the card (float32, attn_backend "auto")
+               for reduced gemma-2b (hd 32 and 256), minitron-4b and
+               codeqwen1.5-7b against the JAX Engine's results in
+               tests/data/torch_serve_golden.json: tokens equal up to the first
+               position where the reference's top-1/top-2 margin is <= 1e-3,
+               prefill logits within 1e-4 relative to max |logit|, one kernel
+               launch per self-attention layer per prefill.
+  8. gemma   — gemma-2b at full width and depth (random bf16 weights from a
+               seeded generator, bf16 compute): 8 requests of 512 tokens,
+               32 new tokens each, 4 slots (two prefills). 18 kernel launches
+               per prefill; prefill logits through the kernel within 3e-2
+               (relative to max |logit|) of the plain version's; prefill and
+               decode-step times, tokens/s, peak memory, the kernel's share of
+               a prefill.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
-the kernel's numbers, and {"ok": true, "device": {...}}. Without a CUDA device
+the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
 the script prints no result and exits non-zero.
 """
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,21 +66,30 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
+SERVE_GOLDEN = ROOT / "tests" / "data" / "torch_serve_golden.json"
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/crms_grid.cu"
 REPLACES = "src/repro/kernels/crms_grid.py:86"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:78"
 SEED = 0
 KW = dict(caps_cpu=30.0, power_span=150.0, alpha=1.4, beta=0.2)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside
-# the tensor cores in operations/s.
+# the tensor cores and dense bf16 on the tensor cores in operations/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+PEAK_BF16_OPS_S = 989e12
 # float32 operations per lane of the crms_grid function: per term of the
 # Erlang head sum (log k!, term, mask, running max, two exps, rescaled sum)
 # and once per lane (Eq. (1), mu, rho, Stirling, tail, Ws, utility).
 OPS_PER_TERM = 14
 OPS_PER_LANE = 40
 MAX_N = 128
+# gemma-2b at full width and depth, the serving shape that phase 8 checks and
+# benchmarks_torch/profile_serve.py profiles: requests of PROMPT_LEN tokens
+# in SLOTS slots over a MAX_LEN-token cache.
+FULL_ARCH = "gemma-2b"
+N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN = 8, 512, 32, 4, 576
 
 
 def log(phase, **fields):
@@ -196,33 +232,239 @@ def run_entry(name, golden, device):
     return launches, diag.refine_iters
 
 
+def flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype):
+    """Least time for attention on these shapes: q, k, v read once and the
+    output written once over the memory rate, against 4·B·H·Sq·Skv·hd
+    operations (halved for causal) over the peak rate of the input type
+    (tensor-core bf16, or float32). Returns (ms, "bytes" | "operations")."""
+    H = KV * G
+    n_ops = 4.0 * B * H * Sq * Skv * hd * (0.5 if causal else 1.0)
+    elem = torch.finfo(dtype).bits // 8
+    n_bytes = elem * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
+    peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa(q, k, v, causal):
+    """scaled_dot_product_attention on the kernel's inputs, in its (B, H, S,
+    hd) layout (k/v expanded over G where ``enable_gqa`` is missing)."""
+    F = torch.nn.functional
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True)
+    G = q.shape[1] // k.shape[1]
+    ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    return lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=causal)
+
+
+def check_bf16_rounding(out, want, what):
+    """Kernel and plain version round float32 results that differ only in the
+    order of their sums to bf16 (8 significant bits): every element within
+    one ulp (2^-7 relative, 2e-5 absolute near 0), and only the rare element
+    whose two float32 values straddle a rounding boundary differs at all. A
+    wrong load, rounding mode or store fails the second check."""
+    np.testing.assert_allclose(out, want, atol=2e-5, rtol=2.0 ** -7, err_msg=what)
+    share = float(np.mean(out != want))
+    if not share < 0.01:
+        raise AssertionError(f"{what} bf16: {share:.2%} of elements differ from the plain "
+                             "version's (rounding should differ on < 1%)")
+    return share
+
+
+def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
+    """Flash kernel vs its plain version on the card; returns the numbers."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + B * Sq + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               .to("cuda", dtype).contiguous()
+               for shape in ((B, Sq, KV, G, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+
+    def kernel():
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    def plain():
+        return ref.flash_attention_plain(q, k, v, causal)
+
+    out, want = kernel(), plain()
+    torch.cuda.synchronize()
+    out, want = out.float().cpu().numpy(), want.float().cpu().numpy()
+    if not np.all(np.isfinite(out)):
+        raise AssertionError(f"flash {(B, Sq, Skv, KV, G, hd)}: non-finite output")
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(out, want, atol=tol, rtol=tol)
+    res = {"shape": f"({B},{Sq},{Skv},{KV},{G},{hd})", "causal": causal,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": float(np.max(np.abs(out - want)))}
+    if dtype == torch.bfloat16:
+        res["bf16_differing_share"] = check_bf16_rounding(out, want,
+                                                          f"flash {(B, Sq, Skv, KV, G, hd)}")
+    if timed:
+        H = KV * G
+        qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, hd).contiguous()
+        kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
+        lib = sdpa(qh, kh, vh, causal)
+        lib_out = lib().reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
+        res["library_max_abs_err"] = float((lib_out.float().cpu() - torch.as_tensor(want))
+                                           .abs().max())
+        res["ms"] = cuda_ms(kernel, 50)
+        res["plain_ms"] = cuda_ms(plain, 5, warmup=1)
+        res["library_ms"] = cuda_ms(lib, 50)
+        res["bound_ms"], res["bound_by"] = flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype)
+    log("flash", **res)
+    return res
+
+
+def serve_reduced(name, entry, setup):
+    """The port's Engine on the card against one golden entry; returns the
+    kernel launches of its run."""
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.layers import Runtime
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.step import make_prefill_step
+
+    cfg = get_config(entry["arch"]).reduced(**entry["overrides"])
+    lm = interop.params_from_jax(interop.numpy_params(cfg, SEED), cfg, "cuda")
+    rt = Runtime("cuda", torch.float32, "auto")
+    eng = Engine(cfg, lm, rt, slots=setup["slots"], max_len=setup["max_len"])
+    prompts = [np.asarray(p, np.int32) for p in setup["prompts"]]
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new=setup["max_new"]))
+    before = flash_attention.launches
+    tokens = [r.out for r in sorted(eng.run(), key=lambda r: r.rid)]
+    torch.cuda.synchronize()
+    launches = flash_attention.launches - before
+    groups = -(-len(prompts) // setup["slots"])
+    if launches != cfg.n_layers * groups:
+        raise AssertionError(f"{name}: {launches} flash launches != {cfg.n_layers} layers "
+                             f"x {groups} prefills")
+    compared = 0
+    for got, want, margins in zip(tokens, entry["tokens"], entry["margins"]):
+        if len(got) != len(want):
+            raise AssertionError(f"{name}: {len(got)} tokens, reference {len(want)}")
+        for g, w, m in zip(got, want, margins):
+            if g != w:
+                if m > 1e-3:
+                    raise AssertionError(f"{name}: token {g} != reference {w} at margin {m}")
+                break
+            compared += 1
+    S = max(len(p) for p in prompts)
+    toks = np.stack([np.pad(p, (S - len(p), 0)) for p in prompts])
+    logits = make_prefill_step(cfg, rt)(lm, {"tokens": toks}).double().cpu().numpy()
+    want = np.asarray(entry["prefill_logits"])
+    err = float(np.max(np.abs(logits - want)) / np.max(np.abs(want)))
+    if not err < 1e-4:
+        raise AssertionError(f"{name}: prefill logits off the reference by {err} (> 1e-4)")
+    log("serve", case=name, hd=cfg.resolved_head_dim, layers=cfg.n_layers, launches=launches,
+        tokens_equal=compared, tokens=sum(map(len, tokens)), logits_rel_err=err)
+    return launches
+
+
+def serve_full(kernel_ms):
+    """gemma-2b at full width on the card; returns the kernel launches of the
+    Engine's run (the serving path, counted from zero)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    n_req, prompt_len, max_new, slots, max_len = N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN
+    cfg = get_config(FULL_ARCH)
+    t0 = time.perf_counter()
+    lm = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), torch.bfloat16,
+                     "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    if n_params != cfg.total_params():
+        raise AssertionError(f"gemma-2b: {n_params} parameters != {cfg.total_params()}")
+    rt = Runtime("cuda", torch.bfloat16, "auto")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (n_req, prompt_len),
+                                                   dtype=np.int32)
+    eng = Engine(cfg, lm, rt, slots=slots, max_len=max_len)
+    for rid in range(n_req):
+        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new=max_new))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    groups = n_req // slots
+    if launches != cfg.n_layers * groups:
+        raise AssertionError(f"gemma-2b: {launches} flash launches != {cfg.n_layers} x {groups}")
+    if sorted(r.rid for r in done) != list(range(n_req)):
+        raise AssertionError("gemma-2b: not every request finished")
+    for r in done:
+        if len(r.out) != max_new or not all(0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError(f"gemma-2b: request {r.rid} gave {r.out}")
+
+    # prefill through the kernel against the plain version, same weights
+    batch = {"tokens": torch.as_tensor(prompts[:slots], device="cuda")}
+    prefill = make_prefill_step(cfg, rt)
+    got = prefill(lm, batch).float()
+    want = make_prefill_step(cfg, Runtime("cuda", torch.bfloat16, "reference"))(lm, batch).float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("gemma-2b: non-finite prefill logits")
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err < 3e-2:
+        raise AssertionError(f"gemma-2b: kernel prefill logits off the plain version's by {err}")
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+    prefill_ms = cuda_ms(lambda: prefill(lm, batch), 3, warmup=1)
+    decode = make_decode_step(cfg, rt)
+    caches = init_cache(cfg, rt, slots, max_len, dtype=torch.bfloat16)
+    step = {"tokens": torch.as_tensor(prompts[:slots, :1], device="cuda"), "index": prompt_len}
+    decode_ms = cuda_ms(lambda: decode(lm, step, caches), 20, warmup=2)
+    log("gemma", params=n_params, init_s=init_s, requests=n_req, prompt_len=prompt_len,
+        max_new=max_new, slots=slots, prefills=groups, engine_wall_s=wall,
+        generated_tokens_per_s=n_req * max_new / wall, prefill_ms=prefill_ms,
+        decode_step_ms=decode_ms, flash_launches=launches,
+        flash_share_of_prefill=cfg.n_layers * kernel_ms / prefill_ms,
+        max_memory_allocated_gb=peak / 1e9, logits_rel_err_vs_plain=err,
+        top1_agreement_vs_plain=top1)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import crms_grid
+    from repro_torch.kernels import crms_grid, flash_attention
 
     golden = json.loads(GOLDEN.read_text())
+    serve_golden = json.loads(SERVE_GOLDEN.read_text())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    log("device", name=repr(name), count=torch.cuda.device_count(),
+    log("device", name=repr(device_name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build
-    built = crms_grid.build(force=True)
-    log("build", seconds=built["seconds"], library=built["library"])
-    for line in built["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("[build] ptxas:", line.strip(), flush=True)
+    # 2. build, both nvcc runs at once
+    with ThreadPoolExecutor(2) as pool:
+        futures = {m.__name__.rsplit(".", 1)[1]: pool.submit(m.build, force=True)
+                   for m in (crms_grid, flash_attention)}
+        builds = {name: f.result() for name, f in futures.items()}
+    for kernel_name, built in builds.items():
+        log("build", kernel=kernel_name, seconds=built["seconds"], library=built["library"])
+        for line in built["log"].splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {kernel_name} ptxas:", line.strip(), flush=True)
 
     # 3. kernel against its plain version
     path_shape = check_kernel(72, 64, "per_app", reps=2000, plain_reps=20)
@@ -246,6 +488,22 @@ def main() -> int:
     if launches != 0:
         raise AssertionError(f"crms_priority launched the scalar-alpha kernel {launches} times")
 
+    # 6. flash kernel against its plain version
+    flash_path = check_flash(4, 512, 512, 1, 8, 256, True, torch.bfloat16, timed=True)
+    check_flash(4, 512, 512, 1, 8, 256, True, torch.float32, timed=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_flash(1, 256, 256, 4, 1, 128, True, dtype)
+        check_flash(1, 70, 130, 2, 2, 32, False, dtype)
+
+    # 7. reduced serving against the JAX Engine's results
+    for case, entry in serve_golden["entries"].items():
+        serve_reduced(case, entry, serve_golden["setup"])
+
+    # 8. gemma-2b at full width: the serving path, counted from zero
+    flash_launches = serve_full(flash_path["ms"])
+    if flash_launches == 0:
+        raise AssertionError("the serving path never launched the flash kernel")
+
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "crms_grid", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
@@ -253,8 +511,14 @@ def main() -> int:
         "ms": path_shape["ms"], "plain_ms": path_shape["plain_ms"],
         "bound_ms": path_shape["bound_ms"], "bound_by": path_shape["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": flash_launches,
+        "max_abs_err": flash_path["max_abs_err"], "ms": flash_path["ms"],
+        "plain_ms": flash_path["plain_ms"], "bound_ms": flash_path["bound_ms"],
+        "bound_by": flash_path["bound_by"], "library_ms": flash_path["library_ms"],
     }]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -1,0 +1,19 @@
+"""command-r-plus-104b — [dense] 64L d_model=12288 96H (GQA kv=8) d_ff=33792
+vocab=256000 — GQA, no-bias [hf:CohereForAI/c4ai-command-r-v01; unverified]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-plus-104b",
+    family="dense",
+    n_layers=64,
+    d_model=12288,
+    n_heads=96,
+    kv_heads=8,
+    d_ff=33792,
+    vocab=256000,
+    act="swiglu",
+    norm="layernorm",  # cohere uses LayerNorm (no bias)
+    qkv_bias=False,
+    rope_theta=75_000_000.0,
+    microbatches=8,
+)

@@ -99,9 +99,12 @@ class FitResult:
     residuals: np.ndarray
     converged: bool
 
-    def predict(self, cpu, mem):
+    def predict(self, cpu, mem, device=None):
+        """The fitted family at (cpu, mem), computed on ``device`` (the CUDA
+        device unless named); returns a NumPy array."""
+        dev = resolve_device(device)
         fn = FAMILIES[self.family].fn
-        return fn(f64(self.params, "cpu"), f64(cpu, "cpu"), f64(mem, "cpu")).numpy()
+        return fn(f64(self.params, dev), f64(cpu, dev), f64(mem, dev)).cpu().numpy()
 
 
 def _lm_fit(theta0, cpu, mem, y, fn, positive: bool = True, iters: int = 200):

@@ -1,15 +1,18 @@
 """Carrying state into and out of the port as plain values.
 
-The system has no weights: its state is the app set, the server caps and the
-allocation. These helpers build the port's objects from NumPy arrays or
+The allocator has no weights: its state is the app set, the server caps and
+the allocation. These helpers build the port's objects from NumPy arrays or
 Python numbers (whatever produced them) and flatten an Allocation back into
-arrays, so two implementations can be compared on the same instance.
+arrays, so two implementations can be compared on the same instance. For the
+model substrate, ``numpy_params`` draws a parameter tree in the reference's
+layout and ``params_from_jax`` loads such a tree into the port's ``LM``.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.core.power import PowerModel
 from repro_torch.core.problem import Allocation, App, ServerCaps
@@ -49,3 +52,109 @@ def allocation_to_arrays(alloc: Allocation) -> dict:
     diag = alloc.meta.get("diagnostics", {})
     out.update({k: diag[k] for k in COUNTERS if k in diag})
     return out
+
+
+# ----------------------------------------------------------------------------
+# Model parameters in the reference's tree layout
+# ----------------------------------------------------------------------------
+def _block_shapes(kind: str, cfg) -> dict:
+    """{name: shape} of one block's leaves, as ``repro.models`` lays them out."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    if kind == "self_attn":
+        shapes = {"wq": (d, cfg.n_heads, hd), "wk": (d, cfg.kv_heads, hd),
+                  "wv": (d, cfg.kv_heads, hd), "wo": (cfg.n_heads, hd, d)}
+        if cfg.qkv_bias:
+            shapes.update(bq=(cfg.n_heads, hd), bk=(cfg.kv_heads, hd), bv=(cfg.kv_heads, hd))
+        return {"attn": shapes}
+    shapes = {"w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)}
+    if cfg.act in ("swiglu", "geglu"):
+        shapes["w_gate"] = (d, cfg.d_ff)
+    return {"mlp": shapes}
+
+
+def numpy_params(cfg, seed: int) -> dict:
+    """A dense-family parameter tree in the reference's layout (stage leaves
+    stacked ``(repeat, ...)``) as float32 NumPy arrays from
+    ``np.random.default_rng(seed)``: normal weights with the reference's
+    fan-in scales; norm weights at their reference init plus 0.1·N(0, 1) and
+    qkv biases 0.1·N(0, 1), so that tests exercise both. The reference takes
+    it as ``jax.tree.map(jnp.asarray, tree)``, the port by
+    ``params_from_jax``."""
+    from repro_torch.models.model import _check_ported
+
+    _check_ported(cfg)
+    rng = np.random.default_rng(seed)
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    norm0 = 0.0 if cfg.norm_plus_one else 1.0
+    scales = {"wq": d**-0.5, "wk": d**-0.5, "wv": d**-0.5, "wo": (cfg.n_heads * hd) ** -0.5,
+              "w_up": d**-0.5, "w_gate": d**-0.5, "w_down": cfg.d_ff**-0.5}
+
+    def draw(shape, scale, mean=0.0):
+        return (mean + scale * rng.standard_normal(shape)).astype(np.float32)
+
+    tree = {"embed": draw((cfg.vocab, d), d**-0.5),
+            "final_norm": {"w": draw((d,), 0.1, norm0)}}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = draw((d, cfg.vocab), d**-0.5)
+    for si, stage in enumerate(cfg.stages()):
+        st = {}
+        for i, (kind, _) in enumerate(stage.blocks):
+            blk = {"norm": {"w": draw((stage.repeat, d), 0.1, norm0)}}
+            for group, shapes in _block_shapes(kind, cfg).items():
+                blk[group] = {name: draw((stage.repeat, *shape), scales.get(name, 0.1))
+                              for name, shape in shapes.items()}
+            st[f"b{i}"] = blk
+        tree[f"stage{si}"] = st
+    return tree
+
+
+def params_from_jax(tree, cfg, device=None, dtype=torch.float32):
+    """An ``LM`` on ``device`` (the CUDA device unless named) holding the
+    reference's parameter tree ``tree`` (leaves as NumPy arrays, or anything
+    ``np.asarray`` takes), cast to ``dtype``. Raises ValueError on a missing,
+    extra or misshapen leaf."""
+    from repro_torch.models.model import LM
+
+    lm = LM(cfg, device, dtype)
+    seen = set()
+
+    def put(param, path, repeats=None, r=None):
+        node = tree
+        for key in path:
+            if not isinstance(node, dict) or key not in node:
+                raise ValueError(f"params_from_jax: missing leaf {'/'.join(path)}")
+            node = node[key]
+        arr = np.asarray(node)
+        want = tuple(param.shape) if repeats is None else (repeats, *param.shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"params_from_jax: {'/'.join(path)} has shape {arr.shape}, "
+                             f"expected {want}")
+        arr = arr if r is None else arr[r]
+        param.copy_(torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.float32))
+        seen.add("/".join(path))
+
+    put(lm.embed, ("embed",))
+    put(lm.final_norm.w, ("final_norm", "w"))
+    if not cfg.tie_embeddings:
+        put(lm.lm_head, ("lm_head",))
+    stages = cfg.stages()
+    for layer, (si, r) in zip(lm.layers, lm.stage_of):
+        for i, block in enumerate(layer):
+            key, repeats = (f"stage{si}", f"b{i}"), stages[si].repeat
+            put(block.norm.w, key + ("norm", "w"), repeats, r)
+            for group, shapes in _block_shapes(block.kind, cfg).items():
+                for name in shapes:
+                    put(getattr(getattr(block, group), name), key + (group, name), repeats, r)
+
+    def leaves(node, prefix=()):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield from leaves(v, prefix + (k,))
+        else:
+            yield "/".join(prefix)
+
+    extra = set(leaves(tree)) - seen
+    if extra:
+        raise ValueError(f"params_from_jax: leaves the dense model has no place for: "
+                         f"{sorted(extra)}")
+    return lm

@@ -6,42 +6,23 @@ The kernel replaces the Pallas TPU kernel
 seeding (``engine.grid_seed_chints``) argmins over and the summed output the
 search baselines score with.
 
-The source is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/repro_torch/`` under the repository root (a plain C launcher, loaded
-with ``ctypes``); nothing is compiled or loaded at import time. ``launches``
-counts the kernel launches this process made.
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use by
+``kernels/build.py`` (a plain C launcher, loaded with ``ctypes``); nothing is
+compiled or loaded at import time. ``launches`` counts the kernel launches
+this process made.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
-F32 = torch.float32
+from repro_torch.kernels.build import build_library
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "crms_grid.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-    "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
-)
+F32 = torch.float32
 
 launches = 0  # kernel launches by this process (chip_smoke.py resets and reads it)
 _lib = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("crms_grid: nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def build(force: bool = False) -> dict:
@@ -49,22 +30,7 @@ def build(force: bool = False) -> dict:
     ``force``) and load it. Returns {"seconds", "library", "log"}; the log
     holds ptxas' register/spill report when this call compiled."""
     global _lib
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libcrms_grid_{digest}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if force or not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"crms_grid: nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, lib_path)
-        log = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(lib_path))
+    lib, info = build_library("crms_grid", force)
     fn = lib.crms_grid_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
@@ -72,7 +38,7 @@ def build(force: bool = False) -> dict:
     ]
     fn.restype = ctypes.c_int
     _lib = lib
-    return {"seconds": time.perf_counter() - t0, "library": str(lib_path), "log": log}
+    return info
 
 
 def _check(name, t, shape, device):

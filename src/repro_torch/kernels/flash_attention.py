@@ -1,0 +1,86 @@
+"""Host side of the hand-written CUDA flash-attention forward
+(csrc/flash_attention.cu).
+
+The kernel replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention_fwd``: GQA attention
+with an online softmax in float32, the causal mask aligned top-left, keys and
+queries past the sequence masked, output in q's dtype. It takes the model's
+layouts directly: q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd), float32 or
+bfloat16, head_dim in {32, 64, 128, 256}.
+
+The source is compiled with ``nvcc`` for ``sm_90a`` at first use by
+``kernels/build.py`` (a plain C launcher, loaded with ``ctypes``); nothing is
+compiled or loaded at import time. ``launches`` counts the kernel launches
+this process made.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import build_library
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128, 256)
+
+launches = 0  # kernel launches by this process (chip_smoke.py resets and reads it)
+_lib = None
+
+
+def build(force: bool = False) -> dict:
+    """Compile the kernel (if its content-hashed library is missing or
+    ``force``) and load it. Returns {"seconds", "library", "log"}; the log
+    holds ptxas' register/spill report when this call compiled."""
+    global _lib
+    lib, info = build_library("flash_attention", force)
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return info
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True):
+    """q (B, Sq, KV, G, hd); k/v (B, Skv, KV, hd): contiguous CUDA tensors of
+    one dtype (float32 or bfloat16). Launches the kernel on the current
+    stream and returns out (B, Sq, KV, G, hd) in q's dtype."""
+    global launches
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention: the CUDA kernel needs CUDA tensors, got {q.device}")
+    if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: q must be (B, Sq, KV, G, hd) and k/v (B, Skv, KV, hd)")
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    if tuple(k.shape) != (B, Skv, KV, hd) or tuple(v.shape) != (B, Skv, KV, hd):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"flash_attention: dtype must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention: {name} is on {t.device}, q on {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    if min(B, Sq, Skv, KV, G) == 0:
+        raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if _lib is None:
+        build()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = _lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, KV, G, hd,
+            float(hd ** -0.5), int(causal), DTYPES[q.dtype], stream,
+        )
+    if status != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {status}")
+    launches += 1
+    return out

@@ -4,7 +4,8 @@ backend:
   'auto'      — the hand-written CUDA kernel for CUDA tensors (it launches or
                 raises; there is no fallback), its plain-torch version
                 (ref.py) for CPU tensors
-  'reference' — the float64 oracle (ref.py)
+  'reference' — crms_grid: the float64 oracle; flash_attention: the plain
+                version (ref.py), on whatever device the tensors are
 """
 from __future__ import annotations
 
@@ -33,3 +34,17 @@ def crms_grid(kappa, lam, xbar, n, c, m, *, caps_cpu, power_span, alpha, beta,
 
         return crms_grid_eval(kappa, lam, xbar, n, c, m, **kw)
     return _ref.crms_grid_plain(kappa, lam, xbar, n, c, m, **kw)
+
+
+# ----------------------------------------------------------------------------
+# flash attention — q (B,Sq,KV,G,hd), k/v (B,Skv,KV,hd); see flash_attention.py
+# ----------------------------------------------------------------------------
+def flash_attention(q, k, v, causal: bool = True, backend: str = "auto"):
+    if backend not in ("auto", "reference"):
+        raise ValueError(f"backend must be 'auto' or 'reference', got {backend!r}")
+    if backend == "auto" and q.is_cuda:
+        from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+        return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal)
+    return _ref.flash_attention_plain(q, k, v, causal)

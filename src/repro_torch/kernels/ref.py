@@ -5,6 +5,10 @@
 CPU path of ``ops.crms_grid`` runs it and the tests hold the kernel to it.
 ``crms_grid_terms``/``crms_grid_utility`` are the float64 oracle: Eq. (1) ->
 μ -> exact Erlang-C Ws -> Eq. (8) utility.
+
+``flash_attention_plain`` is the flash kernel's plain version (the same
+tiles, masks, online softmax and finalisation, in float32);
+``attention_naive`` is the O(S²)-memory oracle.
 """
 from __future__ import annotations
 
@@ -99,3 +103,62 @@ def crms_grid_utility(kappa, lam, xbar, n, c, m, caps_cpu, power_span, alpha, be
         crms_grid_terms(kappa, lam, xbar, n, c, m, caps_cpu, power_span, alpha, beta),
         dim=-1,
     )
+
+
+# ----------------------------------------------------------------------------
+# flash attention — q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd)
+# ----------------------------------------------------------------------------
+def _flash_blocks(q, k, v, causal: bool, qb: int, kb: int):
+    """Blockwise streaming softmax over kv tiles of ``kb`` keys, with q padded
+    to a multiple of ``qb`` rows as the kernel tiles it. Returns the padded
+    float32 output (B, KV, G, Sq_pad, hd); padded rows are fully masked and
+    come out 0."""
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    scale = hd**-0.5
+    sq_pad = -(-Sq // qb) * qb
+    qf = torch.nn.functional.pad(q.to(F32), (0, 0, 0, 0, 0, 0, 0, sq_pad - Sq))
+    kf, vf = k.to(F32), v.to(F32)
+    dev = q.device
+    q_pos = torch.arange(sq_pad, device=dev)[:, None]
+    m = torch.full((B, KV, G, sq_pad), -torch.inf, dtype=F32, device=dev)
+    l = torch.zeros((B, KV, G, sq_pad), dtype=F32, device=dev)
+    acc = torch.zeros((B, KV, G, sq_pad, hd), dtype=F32, device=dev)
+    for k_start in range(0, Skv, kb):
+        kt, vt = kf[:, k_start:k_start + kb], vf[:, k_start:k_start + kb]
+        s = torch.einsum("bqkgh,btkh->bkgqt", qf, kt) * scale
+        k_pos = torch.arange(k_start, k_start + kt.shape[1], device=dev)[None, :]
+        mask = (k_pos < Skv) & (q_pos < Sq)
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkgqt,btkh->bkgqh", p, vt)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, qb: int = 32, kb: int = 32):
+    """Plain version of the flash kernel (its 32-row q tiles and 32-key kv
+    tiles by default): masks ``k_pos < Skv``, ``q_pos < Sq`` and, if causal,
+    ``q_pos >= k_pos`` (top-left aligned); ``acc / max(l, 1e-30)``; float32
+    inside, q's dtype out, in q's (B, Sq, KV, G, hd) layout."""
+    Sq = q.shape[1]
+    out = _flash_blocks(q, k, v, causal, qb, kb)[:, :, :, :Sq]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def attention_naive(q, k, v, causal: bool = True):
+    """O(S^2)-memory oracle (tests only): materializes the score matrix."""
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    s = torch.einsum("bqkgh,btkh->bkgqt", q.to(F32), k.to(F32)) * hd**-0.5
+    if causal:
+        mask = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Skv, device=q.device)
+        s = torch.where(mask, s, -torch.inf)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqt,btkh->bqkgh", w, v.to(F32)).to(q.dtype)

@@ -1,0 +1,30 @@
+"""Serving steps: prefill (forward, last-position logits) and decode (one
+token against a KV cache), as ``repro/serve/step.py``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import Runtime
+from repro_torch.models.model import apply_decode, apply_lm
+
+
+def make_prefill_step(cfg: ModelConfig, runtime: Runtime):
+    def prefill_step(lm, batch):
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        logits, _ = apply_lm(lm, cfg, runtime, batch["tokens"], extra)
+        return logits[:, -1, :]
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, runtime: Runtime):
+    def decode_step(lm, batch, caches):
+        extra = {k: v for k, v in batch.items() if k not in ("tokens", "index")}
+        logits, new_caches = apply_decode(
+            lm, cfg, runtime, batch["tokens"], caches, batch["index"], extra
+        )
+        next_token = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        return next_token, logits[:, -1, :], new_caches
+
+    return decode_step

@@ -1,23 +1,31 @@
-"""Card-only tests of the port: the hand-written CUDA ``crms_grid`` kernel
-against its plain float32 version, and the main path's launches through it.
+"""Card-only tests of the port: the hand-written CUDA ``crms_grid`` and
+flash-attention kernels against their plain versions, and the launches of
+the allocator path and of a prefill through them.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-Without a CUDA device every test skips (the kernel has no CPU mode).
-The plain version runs on the same device, so both sides use CUDA's expf/logf;
-tolerances as chip_smoke.py states them: rtol 1e-5 on lanes with ρ <= 0.99,
-1e-4 on all stable lanes, sentinel lanes > 1e6.
+Without a CUDA device every test skips (the kernels have no CPU mode).
+The plain versions run on the same device, so both sides use CUDA's
+expf/logf; tolerances as chip_smoke.py states them: crms_grid rtol 1e-5 on
+lanes with ρ <= 0.99, 1e-4 on all stable lanes, sentinel lanes > 1e6; flash
+attention atol/rtol 2e-5 in float32 and 3e-2 in bfloat16 (the reference's
+bar, tests/test_kernels.py).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import AllocRequest, allocate
+from repro_torch.configs import get_config
 from repro_torch.core.profiler import make_tenant_mix
 from repro_torch.kernels import crms_grid as port_kernel
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import Runtime
+from repro_torch.models.model import init_params
+from repro_torch.serve.step import make_prefill_step
 
 KW = dict(caps_cpu=30.0, power_span=150.0, alpha=1.4, beta=0.2)
 
@@ -25,7 +33,7 @@ KW = dict(caps_cpu=30.0, power_span=150.0, alpha=1.4, beta=0.2)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the crms_grid CUDA kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -80,3 +88,47 @@ def test_main_path_launches_the_kernel(cuda_device):
     res = allocate("crms", AllocRequest(apps, caps, device=cuda_device.type))
     assert res.feasible and res.stable
     assert port_kernel.launches - before >= res.diagnostics.refine_iters > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,KV,G,hd,causal,dtype", [
+    (4, 512, 512, 1, 8, 256, True, torch.bfloat16), (4, 512, 512, 1, 8, 256, True, torch.float32),
+    (1, 256, 256, 4, 1, 128, True, torch.float32), (1, 70, 130, 2, 2, 32, False, torch.float32),
+    (1, 70, 130, 2, 2, 32, True, torch.bfloat16), (2, 192, 192, 2, 3, 64, True, torch.float32),
+])
+def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, KV, G, hd, causal, dtype):
+    rng = np.random.default_rng(B * Sq + hd)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               .to(cuda_device, dtype) for shape in
+               ((B, Sq, KV, G, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    before = flash_kernel.launches
+    out = ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = ref.flash_attention_plain(q, k, v, causal)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    got, want = out.float().cpu().numpy(), want.float().cpu().numpy()
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        # both round float32 results to bf16: within one ulp, and rarely apart
+        np.testing.assert_allclose(got, want, atol=2e-5, rtol=2.0 ** -7)
+        assert np.mean(got != want) < 0.01
+
+
+@pytest.mark.gpu
+def test_prefill_launches_the_flash_kernel_once_per_layer(cuda_device):
+    cfg = get_config("gemma-2b").reduced(n_layers=4)
+    lm = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device=cuda_device)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 40)),
+                             device=cuda_device)
+    logits = {}
+    for backend in ("auto", "reference"):
+        before = flash_kernel.launches
+        rt = Runtime(cuda_device, torch.float32, backend)
+        logits[backend] = make_prefill_step(cfg, rt)(lm, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert flash_kernel.launches - before == (cfg.n_layers if backend == "auto" else 0)
+    err = (logits["auto"] - logits["reference"]).abs().max() / logits["reference"].abs().max()
+    assert float(err) < 1e-4

@@ -74,7 +74,8 @@ def test_fit_quality_matches_reference(family):
     assert port.rmse == pytest.approx(ref.rmse, rel=1e-8)
     assert port.r2 == pytest.approx(ref.r2, rel=1e-8)
     assert port.converged == ref.converged
-    np.testing.assert_allclose(port.predict(p.cpu, p.mem), ref.predict(p.cpu, p.mem),
+    np.testing.assert_allclose(port.predict(p.cpu, p.mem, device="cpu"),
+                               ref.predict(p.cpu, p.mem),
                                rtol=1e-6)
     if family != "rational":
         np.testing.assert_allclose(port.params, ref.params, rtol=1e-6)
