@@ -1,8 +1,9 @@
-"""Where the time of gemma-2b serving goes on the GPU.
+"""Where the time of serving gemma-2b and mamba2-130m goes on the GPU.
 
     PYTHONPATH=src python benchmarks_torch/profile_serve.py [--out FILE]
 
-For gemma-2b at full width and depth (random bf16 weights from a seeded
+For gemma-2b and mamba2-130m (``chip_smoke.py``'s ``FULL_ARCH`` and
+``SSM_ARCH``) at full width and depth (random bf16 weights from a seeded
 generator, bf16 compute, ``attn_backend="auto"``) on the CUDA device, at the
 serving shape that ``chip_smoke.py`` checks (its ``SLOTS``, ``PROMPT_LEN`` and
 ``MAX_LEN``), after one warm-up of each: a torch.profiler trace of one
@@ -10,8 +11,10 @@ prefill of SLOTS x PROMPT_LEN tokens (``make_prefill_step``, the Engine's
 prefill) and one of a decode step over a MAX_LEN-token cache
 (``make_decode_step``). For each: host wall time
 (closed by torch.cuda.synchronize()), device busy time (sum of kernel
-times), the device's idle share of the wall, kernel launches, the flash
-kernel's device time and share, and the kernels with the most device time.
+times), the device's idle share of the wall, kernel launches, the model's
+hand-written kernel's launches, device time and share (flash attention for
+gemma-2b, the SSD chunk kernel for mamba2-130m), and the kernels with the
+most device time.
 
 Prints one JSON object, with nvidia-smi's "name, power.limit" (and writes it
 to ``--out`` when given). Needs a CUDA device.
@@ -33,22 +36,25 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import FULL_ARCH, MAX_LEN, PROMPT_LEN, SEED, SLOTS  # noqa: E402
+from chip_smoke import FULL_ARCH, MAX_LEN, PROMPT_LEN, SEED, SLOTS, SSM_ARCH  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import flash_attention  # noqa: E402
+from repro_torch.kernels import flash_attention, ssd  # noqa: E402
 from repro_torch.models.layers import Runtime  # noqa: E402
 from repro_torch.models.model import init_cache, init_params  # noqa: E402
 from repro_torch.serve.step import make_decode_step, make_prefill_step  # noqa: E402
 
 TOP = 10  # kernels listed by device time
+# each model's hand-written kernel: its host module and its CUDA function's name
+KERNELS = {FULL_ARCH: (flash_attention, "flash_fwd_kernel"),
+           SSM_ARCH: (ssd, "ssd_chunk_kernel")}
 
 
-def device_profile(fn):
+def device_profile(fn, kernel, kernel_name):
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
-    launches0 = flash_attention.launches
+    launches0 = kernel.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
@@ -60,13 +66,13 @@ def device_profile(fn):
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
         by_name[e.name][1] += 1
     busy_ms = sum(v[0] for v in by_name.values())
-    flash_ms = sum(v[0] for k, v in by_name.items() if "flash_fwd_kernel" in k)
+    kernel_ms = sum(v[0] for k, v in by_name.items() if kernel_name in k)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {
         "wall_ms": 1e3 * wall, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / (1e3 * wall), "device_kernels": len(kernels),
-        "flash_launches": flash_attention.launches - launches0, "flash_device_ms": flash_ms,
-        "flash_share_of_busy": flash_ms / busy_ms if busy_ms else 0.0,
+        "kernel_launches": kernel.launches - launches0, "kernel_device_ms": kernel_ms,
+        "kernel_share_of_busy": kernel_ms / busy_ms if busy_ms else 0.0,
         "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]} for k, v in ranked[:TOP]],
     }
 
@@ -78,27 +84,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serve: needs a CUDA device", file=sys.stderr)
         return 1
-    cfg = get_config(FULL_ARCH)
-    lm = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), torch.bfloat16,
-                     "cuda")
-    rt = Runtime("cuda", torch.bfloat16, "auto")
-    tokens = torch.as_tensor(
-        np.random.default_rng(SEED).integers(0, cfg.vocab, (SLOTS, PROMPT_LEN)),
-        device="cuda")
-    prefill = make_prefill_step(cfg, rt)
-    decode = make_decode_step(cfg, rt)
-    caches = init_cache(cfg, rt, SLOTS, MAX_LEN, dtype=torch.bfloat16)
-    step = {"tokens": tokens[:, :1], "index": PROMPT_LEN}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    out = {
-        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "layers": cfg.n_layers,
-        "slots": SLOTS, "prompt": PROMPT_LEN, "max_len": MAX_LEN,
-        "prefill": device_profile(lambda: prefill(lm, {"tokens": tokens})),
-        "decode_step": device_profile(lambda: decode(lm, step, caches)),
-    }
+    out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "slots": SLOTS,
+           "prompt": PROMPT_LEN, "max_len": MAX_LEN, "models": {}}
+    rt = Runtime("cuda", torch.bfloat16, "auto")
+    for arch, (kernel, kernel_name) in KERNELS.items():
+        cfg = get_config(arch)
+        lm = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED),
+                         torch.bfloat16, "cuda")
+        tokens = torch.as_tensor(
+            np.random.default_rng(SEED).integers(0, cfg.vocab, (SLOTS, PROMPT_LEN)),
+            device="cuda")
+        prefill = make_prefill_step(cfg, rt)
+        decode = make_decode_step(cfg, rt)
+        caches = init_cache(cfg, rt, SLOTS, MAX_LEN, dtype=torch.bfloat16)
+        step = {"tokens": tokens[:, :1], "index": PROMPT_LEN}
+        out["models"][arch] = {
+            "layers": cfg.n_layers, "kernel": kernel_name,
+            "prefill": device_profile(lambda: prefill(lm, {"tokens": tokens}), kernel,
+                                      kernel_name),
+            "decode_step": device_profile(lambda: decode(lm, step, caches), kernel,
+                                          kernel_name),
+        }
     text = json.dumps(out, indent=1)
     print(text)
     if args.out is not None:

@@ -7,8 +7,8 @@ Phases, one line of numbers each; any failed check raises and the exit code
 is non-zero:
 
   1. device  — the CUDA device's name and nvidia-smi's name/power limit.
-  2. build   — compiles the crms_grid and flash_attention CUDA kernels from
-               the checkout's sources, both nvcc runs at once; ptxas'
+  2. build   — compiles the crms_grid, flash_attention and ssd CUDA kernels
+               from the checkout's sources, all nvcc runs at once; ptxas'
                registers and spills.
   3. kernel  — crms_grid against its plain-torch version on numpy-seeded
                inputs at the main path's shape (72, 64) in per-app mode and a
@@ -35,20 +35,35 @@ is non-zero:
                path's shape: the kernel's, the plain
                version's and scaled_dot_product_attention's times (CUDA
                events) and the lower bound from the shapes.
-  7. serve   — the port's Engine on the card (float32, attn_backend "auto")
-               for reduced gemma-2b (hd 32 and 256), minitron-4b and
-               codeqwen1.5-7b against the JAX Engine's results in
-               tests/data/torch_serve_golden.json: tokens equal up to the first
-               position where the reference's top-1/top-2 margin is <= 1e-3,
-               prefill logits within 1e-4 relative to max |logit|, one kernel
-               launch per self-attention layer per prefill.
-  8. gemma   — gemma-2b at full width and depth (random bf16 weights from a
+  7. ssd     — the SSD chunk kernel against its plain version on
+               numpy-seeded inputs: the serving path's shape (B 4, S 512,
+               H 24, P 64, N 128, chunk 256), the reference's test shapes
+               (1, 128, 2, 32, 16, 64) and (2, 256, 4, 64, 32, 128), and the
+               ragged chunk (2, 8, 4, 16, 16, 256); y_diag and the states
+               within atol 2e-5 / rtol 2e-4 (the reference's bar), the cumsum
+               bit for bit, and ops.ssd_chunks through the kernel against its
+               plain route within the same bar. At the path's shape: the
+               kernel's and the plain version's times (CUDA events) and the
+               lower bound from the shapes.
+  8. serve   — the port's Engine on the card (float32, attn_backend "auto")
+               for reduced gemma-2b (hd 32 and 256), minitron-4b,
+               codeqwen1.5-7b and mamba2-130m against the JAX Engine's results
+               in tests/data/torch_serve_golden.json: tokens equal up to the
+               first position where the reference's top-1/top-2 margin is
+               <= 1e-3, prefill logits within 1e-4 relative to max |logit|,
+               one flash launch per self-attention layer and one ssd launch
+               per Mamba layer per prefill.
+  9. gemma   — gemma-2b at full width and depth (random bf16 weights from a
                seeded generator, bf16 compute): 8 requests of 512 tokens,
                32 new tokens each, 4 slots (two prefills). 18 kernel launches
                per prefill; prefill logits through the kernel within 3e-2
                (relative to max |logit|) of the plain version's; prefill and
                decode-step times, tokens/s, peak memory, the kernel's share of
                a prefill.
+ 10. mamba   — mamba2-130m at full width and depth, as phase 9: 24 ssd
+               launches per prefill (48 in the run), the reference's realized
+               parameter count, prefill logits through the kernel within 3e-2
+               of the plain version's, the same timings.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
@@ -71,6 +86,8 @@ KERNEL_SOURCE = "src/repro_torch/kernels/csrc/crms_grid.cu"
 REPLACES = "src/repro/kernels/crms_grid.py:86"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention.py:78"
+SSD_SOURCE = "src/repro_torch/kernels/csrc/ssd.cu"
+SSD_REPLACES = "src/repro/kernels/ssd.py:51"
 SEED = 0
 KW = dict(caps_cpu=30.0, power_span=150.0, alpha=1.4, beta=0.2)
 
@@ -85,10 +102,11 @@ PEAK_BF16_OPS_S = 989e12
 OPS_PER_TERM = 14
 OPS_PER_LANE = 40
 MAX_N = 128
-# gemma-2b at full width and depth, the serving shape that phase 8 checks and
-# benchmarks_torch/profile_serve.py profiles: requests of PROMPT_LEN tokens
-# in SLOTS slots over a MAX_LEN-token cache.
+# gemma-2b and mamba2-130m at full width and depth, the serving shape that
+# phases 9 and 10 check and benchmarks_torch/profile_serve.py profiles:
+# requests of PROMPT_LEN tokens in SLOTS slots over a MAX_LEN-token cache.
 FULL_ARCH = "gemma-2b"
+SSM_ARCH = "mamba2-130m"
 N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN = 8, 512, 32, 4, 576
 
 
@@ -316,12 +334,97 @@ def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
     return res
 
 
+def ssd_bound_ms(B, S, H, P, N, Q):
+    """Least time for the SSD chunk step on these shapes: x, B, C and da read
+    once and y_diag, the states and the cumsum written once over the memory
+    rate, against the float32 operations over the float32 rate: per (batch,
+    chunk, head), the scores C Bᵀ and the product with x over the Q(Q+1)/2
+    pairs j <= i (2N + 2P multiply-adds), the decay of each pair (subtract,
+    exp, multiply), the state's Q x P x N multiply-adds with the decay of
+    each position's B row, and the cumsum. Returns (ms, "bytes" |
+    "operations")."""
+    tiles = B * (S // Q) * H
+    pairs = Q * (Q + 1) / 2
+    n_ops = tiles * (pairs * (2 * N + 2 * P + 3) + Q * (2 * P * N + N + 2) + Q)
+    n_bytes = 4 * (2 * B * S * H * P + 2 * B * S * N + 2 * B * S * H
+                   + B * (S // Q) * H * P * N)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_ssd(B, S, H, P, N, chunk, timed=False):
+    """SSD chunk kernel vs its plain version on the card, on the reference
+    test's input distributions; returns the numbers."""
+    from repro_torch.kernels import ops, ref, ssd
+
+    rng = np.random.default_rng(SEED + B * S + P)
+    x = rng.standard_normal((B, S, H, P))
+    bm, cm = (0.5 * rng.standard_normal((B, S, N)) for _ in range(2))
+    da = -np.logaddexp(rng.standard_normal((B, S, H)), 0.0)
+    x, bm, cm, da = (torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                     for a in (x, bm, cm, da))
+    Q = min(chunk, S)
+
+    def kernel():
+        return ssd.ssd_chunk_fwd(x, bm, cm, da, chunk=Q)
+
+    def plain():
+        return ref.ssd_chunk_plain(x, bm, cm, da, Q)
+
+    got, want = kernel(), plain()
+    y, final = ops.ssd_chunks(x, bm, cm, da, chunk=chunk)
+    want_y, want_final = ops.ssd_chunks(x, bm, cm, da, chunk=chunk, backend="reference")
+    torch.cuda.synchronize()
+    what = f"ssd {(B, S, H, P, N, chunk)}"
+    if not all(bool(torch.isfinite(t).all()) for t in (*got, y, final)):
+        raise AssertionError(f"{what}: non-finite output")
+    if not torch.equal(got[2], want[2]):
+        raise AssertionError(f"{what}: the kernel's cumsum differs from the plain version's")
+    errs = []
+    for name, g, w in (("y_diag", got[0], want[0]), ("states", got[1], want[1]),
+                       ("y", y, want_y), ("final_state", final, want_final)):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-4, err_msg=f"{what} {name}")
+        errs.append(float(np.max(np.abs(g - w))))
+    res = {"shape": f"({B},{S},{H},{P},{N},{chunk})", "max_abs_err": max(errs[:2]),
+           "ssd_chunks_max_abs_err": max(errs[2:]),
+           "max_abs_y": float(want[0].abs().max())}
+    if timed:
+        res["ms"] = cuda_ms(kernel, 50)
+        res["plain_ms"] = cuda_ms(plain, 5, warmup=1)
+        res["bound_ms"], res["bound_by"] = ssd_bound_ms(B, S, H, P, N, Q)
+    log("ssd", **res)
+    return res
+
+
+def block_counts(cfg):
+    """(self-attention layers, Mamba layers) of a config."""
+    count = {"self_attn": 0, "mamba": 0}
+    for stage in cfg.stages():
+        for kind, _ in stage.blocks:
+            if kind in count:
+                count[kind] += stage.repeat
+    return count["self_attn"], count["mamba"]
+
+
+def realized_params(cfg):
+    """The reference's realized parameter count: total_params() leaves out
+    each Mamba block's conv_b (Ch) and dt_bias (nh) (configs/base.py
+    _mamba_params; the reference's own test accepts that at rel 0.02)."""
+    _, n_mamba = block_counts(cfg)
+    if not n_mamba:
+        return cfg.total_params()
+    m = cfg.mamba
+    d_in, nh = m.d_inner(cfg.d_model), m.n_heads(cfg.d_model)
+    return cfg.total_params() + n_mamba * (d_in + 2 * m.d_state + nh)
+
+
 def serve_reduced(name, entry, setup):
     """The port's Engine on the card against one golden entry; returns the
-    kernel launches of its run."""
+    flash and ssd kernel launches of its run."""
     from repro_torch import interop
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, ssd
     from repro_torch.models.layers import Runtime
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.step import make_prefill_step
@@ -333,14 +436,15 @@ def serve_reduced(name, entry, setup):
     prompts = [np.asarray(p, np.int32) for p in setup["prompts"]]
     for rid, prompt in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=prompt, max_new=setup["max_new"]))
-    before = flash_attention.launches
+    before = flash_attention.launches, ssd.launches
     tokens = [r.out for r in sorted(eng.run(), key=lambda r: r.rid)]
     torch.cuda.synchronize()
-    launches = flash_attention.launches - before
+    launches = flash_attention.launches - before[0], ssd.launches - before[1]
     groups = -(-len(prompts) // setup["slots"])
-    if launches != cfg.n_layers * groups:
-        raise AssertionError(f"{name}: {launches} flash launches != {cfg.n_layers} layers "
-                             f"x {groups} prefills")
+    want = tuple(n * groups for n in block_counts(cfg))
+    if launches != want:
+        raise AssertionError(f"{name}: (flash, ssd) launches {launches} != {want}: one per "
+                             f"attention / Mamba layer x {groups} prefills")
     compared = 0
     for got, want, margins in zip(tokens, entry["tokens"], entry["margins"]):
         if len(got) != len(want):
@@ -358,31 +462,33 @@ def serve_reduced(name, entry, setup):
     err = float(np.max(np.abs(logits - want)) / np.max(np.abs(want)))
     if not err < 1e-4:
         raise AssertionError(f"{name}: prefill logits off the reference by {err} (> 1e-4)")
-    log("serve", case=name, hd=cfg.resolved_head_dim, layers=cfg.n_layers, launches=launches,
-        tokens_equal=compared, tokens=sum(map(len, tokens)), logits_rel_err=err)
+    log("serve", case=name, hd=cfg.resolved_head_dim, layers=cfg.n_layers,
+        flash_launches=launches[0], ssd_launches=launches[1], tokens_equal=compared,
+        tokens=sum(map(len, tokens)), logits_rel_err=err)
     return launches
 
 
-def serve_full(kernel_ms):
-    """gemma-2b at full width on the card; returns the kernel launches of the
-    Engine's run (the serving path, counted from zero)."""
+def serve_full(arch, kernel, kernel_ms, phase):
+    """``arch`` at full width on the card; returns the launches of
+    ``kernel`` (the flash_attention or ssd module, one launch per layer per
+    prefill) in the Engine's run (the serving path, counted from zero)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention
     from repro_torch.models.layers import Runtime
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
     n_req, prompt_len, max_new, slots, max_len = N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN
-    cfg = get_config(FULL_ARCH)
+    kname = kernel.__name__.rsplit(".", 1)[1]
+    cfg = get_config(arch)
     t0 = time.perf_counter()
     lm = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), torch.bfloat16,
                      "cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in lm.parameters())
-    if n_params != cfg.total_params():
-        raise AssertionError(f"gemma-2b: {n_params} parameters != {cfg.total_params()}")
+    if n_params != realized_params(cfg):
+        raise AssertionError(f"{arch}: {n_params} parameters != {realized_params(cfg)}")
     rt = Runtime("cuda", torch.bfloat16, "auto")
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (n_req, prompt_len),
                                                    dtype=np.int32)
@@ -390,21 +496,21 @@ def serve_full(kernel_ms):
     for rid in range(n_req):
         eng.submit(Request(rid=rid, prompt=prompts[rid], max_new=max_new))
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    kernel.launches = 0
     t0 = time.perf_counter()
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
+    launches = kernel.launches
     peak = torch.cuda.max_memory_allocated()
     groups = n_req // slots
     if launches != cfg.n_layers * groups:
-        raise AssertionError(f"gemma-2b: {launches} flash launches != {cfg.n_layers} x {groups}")
+        raise AssertionError(f"{arch}: {launches} {kname} launches != {cfg.n_layers} x {groups}")
     if sorted(r.rid for r in done) != list(range(n_req)):
-        raise AssertionError("gemma-2b: not every request finished")
+        raise AssertionError(f"{arch}: not every request finished")
     for r in done:
         if len(r.out) != max_new or not all(0 <= t < cfg.vocab for t in r.out):
-            raise AssertionError(f"gemma-2b: request {r.rid} gave {r.out}")
+            raise AssertionError(f"{arch}: request {r.rid} gave {r.out}")
 
     # prefill through the kernel against the plain version, same weights
     batch = {"tokens": torch.as_tensor(prompts[:slots], device="cuda")}
@@ -412,10 +518,10 @@ def serve_full(kernel_ms):
     got = prefill(lm, batch).float()
     want = make_prefill_step(cfg, Runtime("cuda", torch.bfloat16, "reference"))(lm, batch).float()
     if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        raise AssertionError("gemma-2b: non-finite prefill logits")
+        raise AssertionError(f"{arch}: non-finite prefill logits")
     err = float((got - want).abs().max() / want.abs().max())
     if not err < 3e-2:
-        raise AssertionError(f"gemma-2b: kernel prefill logits off the plain version's by {err}")
+        raise AssertionError(f"{arch}: kernel prefill logits off the plain version's by {err}")
     top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
 
     prefill_ms = cuda_ms(lambda: prefill(lm, batch), 3, warmup=1)
@@ -423,11 +529,12 @@ def serve_full(kernel_ms):
     caches = init_cache(cfg, rt, slots, max_len, dtype=torch.bfloat16)
     step = {"tokens": torch.as_tensor(prompts[:slots, :1], device="cuda"), "index": prompt_len}
     decode_ms = cuda_ms(lambda: decode(lm, step, caches), 20, warmup=2)
-    log("gemma", params=n_params, init_s=init_s, requests=n_req, prompt_len=prompt_len,
+    log(phase, params=n_params, init_s=init_s, requests=n_req, prompt_len=prompt_len,
         max_new=max_new, slots=slots, prefills=groups, engine_wall_s=wall,
         generated_tokens_per_s=n_req * max_new / wall, prefill_ms=prefill_ms,
-        decode_step_ms=decode_ms, flash_launches=launches,
-        flash_share_of_prefill=cfg.n_layers * kernel_ms / prefill_ms,
+        decode_step_ms=decode_ms, **{f"{kname}_launches": launches,
+                                     f"{kname}_share_of_prefill":
+                                     cfg.n_layers * kernel_ms / prefill_ms},
         max_memory_allocated_gb=peak / 1e9, logits_rel_err_vs_plain=err,
         top1_agreement_vs_plain=top1)
     return launches
@@ -439,7 +546,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import crms_grid, flash_attention
+    from repro_torch.kernels import crms_grid, flash_attention, ssd
 
     golden = json.loads(GOLDEN.read_text())
     serve_golden = json.loads(SERVE_GOLDEN.read_text())
@@ -455,10 +562,11 @@ def main() -> int:
     log("device", name=repr(device_name), count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build, both nvcc runs at once
-    with ThreadPoolExecutor(2) as pool:
+    # 2. build, all nvcc runs at once
+    kernels = (crms_grid, flash_attention, ssd)
+    with ThreadPoolExecutor(len(kernels)) as pool:
         futures = {m.__name__.rsplit(".", 1)[1]: pool.submit(m.build, force=True)
-                   for m in (crms_grid, flash_attention)}
+                   for m in kernels}
         builds = {name: f.result() for name, f in futures.items()}
     for kernel_name, built in builds.items():
         log("build", kernel=kernel_name, seconds=built["seconds"], library=built["library"])
@@ -495,14 +603,25 @@ def main() -> int:
         check_flash(1, 256, 256, 4, 1, 128, True, dtype)
         check_flash(1, 70, 130, 2, 2, 32, False, dtype)
 
-    # 7. reduced serving against the JAX Engine's results
+    # 7. ssd kernel against its plain version
+    ssd_path = check_ssd(4, 512, 24, 64, 128, 256, timed=True)
+    for shape in ((1, 128, 2, 32, 16, 64), (2, 256, 4, 64, 32, 128), (2, 8, 4, 16, 16, 256)):
+        check_ssd(*shape)
+    log("ssd", library_equivalent="none (no single PyTorch call computes the chunked SSD)")
+
+    # 8. reduced serving against the JAX Engine's results
     for case, entry in serve_golden["entries"].items():
         serve_reduced(case, entry, serve_golden["setup"])
 
-    # 8. gemma-2b at full width: the serving path, counted from zero
-    flash_launches = serve_full(flash_path["ms"])
+    # 9. gemma-2b at full width: the serving path, counted from zero
+    flash_launches = serve_full(FULL_ARCH, flash_attention, flash_path["ms"], "gemma")
     if flash_launches == 0:
         raise AssertionError("the serving path never launched the flash kernel")
+
+    # 10. mamba2-130m at full width: its serving path, counted from zero
+    ssd_launches = serve_full(SSM_ARCH, ssd, ssd_path["ms"], "mamba")
+    if ssd_launches == 0:
+        raise AssertionError("the mamba serving path never launched the ssd kernel")
 
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
@@ -517,6 +636,12 @@ def main() -> int:
         "max_abs_err": flash_path["max_abs_err"], "ms": flash_path["ms"],
         "plain_ms": flash_path["plain_ms"], "bound_ms": flash_path["bound_ms"],
         "bound_by": flash_path["bound_by"], "library_ms": flash_path["library_ms"],
+    }, {
+        "name": "ssd_chunk", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
+        "launches": ssd_launches, "max_abs_err": ssd_path["max_abs_err"],
+        "ms": ssd_path["ms"], "plain_ms": ssd_path["plain_ms"],
+        "bound_ms": ssd_path["bound_ms"], "bound_by": ssd_path["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)

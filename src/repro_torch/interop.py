@@ -58,8 +58,16 @@ def allocation_to_arrays(alloc: Allocation) -> dict:
 # Model parameters in the reference's tree layout
 # ----------------------------------------------------------------------------
 def _block_shapes(kind: str, cfg) -> dict:
-    """{name: shape} of one block's leaves, as ``repro.models`` lays them out."""
+    """{group: {name: shape}} of one block's leaves besides its norm, as
+    ``repro.models`` lays them out."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
+    if kind == "mamba":
+        m = cfg.mamba
+        d_in, nh, N = m.d_inner(d), m.n_heads(d), m.d_state
+        ch = d_in + 2 * N
+        return {"mamba": {"w_in": (d, 2 * d_in + 2 * N + nh), "conv_w": (m.d_conv, ch),
+                          "conv_b": (ch,), "a_log": (nh,), "d_skip": (nh,), "dt_bias": (nh,),
+                          "norm_w": (d_in,), "w_out": (d_in, d)}}
     if kind == "self_attn":
         shapes = {"wq": (d, cfg.n_heads, hd), "wk": (d, cfg.kv_heads, hd),
                   "wv": (d, cfg.kv_heads, hd), "wo": (cfg.n_heads, hd, d)}
@@ -73,13 +81,14 @@ def _block_shapes(kind: str, cfg) -> dict:
 
 
 def numpy_params(cfg, seed: int) -> dict:
-    """A dense-family parameter tree in the reference's layout (stage leaves
-    stacked ``(repeat, ...)``) as float32 NumPy arrays from
+    """A dense- or ssm-family parameter tree in the reference's layout (stage
+    leaves stacked ``(repeat, ...)``) as float32 NumPy arrays from
     ``np.random.default_rng(seed)``: normal weights with the reference's
-    fan-in scales; norm weights at their reference init plus 0.1·N(0, 1) and
-    qkv biases 0.1·N(0, 1), so that tests exercise both. The reference takes
-    it as ``jax.tree.map(jnp.asarray, tree)``, the port by
-    ``params_from_jax``."""
+    fan-in scales (the Mamba conv 0.1); norm weights, qkv biases and the
+    Mamba constants (``conv_b``, ``a_log``, ``dt_bias`` around 0, ``d_skip``
+    and ``norm_w`` around 1) at their reference init plus 0.1·N(0, 1), so
+    that tests exercise each of them. The reference takes it as
+    ``jax.tree.map(jnp.asarray, tree)``, the port by ``params_from_jax``."""
     from repro_torch.models.model import _check_ported
 
     _check_ported(cfg)
@@ -87,7 +96,11 @@ def numpy_params(cfg, seed: int) -> dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     norm0 = 0.0 if cfg.norm_plus_one else 1.0
     scales = {"wq": d**-0.5, "wk": d**-0.5, "wv": d**-0.5, "wo": (cfg.n_heads * hd) ** -0.5,
-              "w_up": d**-0.5, "w_gate": d**-0.5, "w_down": cfg.d_ff**-0.5}
+              "w_up": d**-0.5, "w_gate": d**-0.5, "w_down": cfg.d_ff**-0.5,
+              "w_in": d**-0.5}
+    if cfg.mamba is not None:
+        scales["w_out"] = cfg.mamba.d_inner(d) ** -0.5
+    means = {"d_skip": 1.0, "norm_w": 1.0}  # the rest start at 0
 
     def draw(shape, scale, mean=0.0):
         return (mean + scale * rng.standard_normal(shape)).astype(np.float32)
@@ -101,7 +114,8 @@ def numpy_params(cfg, seed: int) -> dict:
         for i, (kind, _) in enumerate(stage.blocks):
             blk = {"norm": {"w": draw((stage.repeat, d), 0.1, norm0)}}
             for group, shapes in _block_shapes(kind, cfg).items():
-                blk[group] = {name: draw((stage.repeat, *shape), scales.get(name, 0.1))
+                blk[group] = {name: draw((stage.repeat, *shape), scales.get(name, 0.1),
+                                         means.get(name, 0.0))
                               for name, shape in shapes.items()}
             st[f"b{i}"] = blk
         tree[f"stage{si}"] = st
@@ -155,6 +169,6 @@ def params_from_jax(tree, cfg, device=None, dtype=torch.float32):
 
     extra = set(leaves(tree)) - seen
     if extra:
-        raise ValueError(f"params_from_jax: leaves the dense model has no place for: "
+        raise ValueError(f"params_from_jax: leaves the model has no place for: "
                          f"{sorted(extra)}")
     return lm

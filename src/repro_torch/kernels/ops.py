@@ -4,14 +4,17 @@ backend:
   'auto'      — the hand-written CUDA kernel for CUDA tensors (it launches or
                 raises; there is no fallback), its plain-torch version
                 (ref.py) for CPU tensors
-  'reference' — crms_grid: the float64 oracle; flash_attention: the plain
-                version (ref.py), on whatever device the tensors are
+  'reference' — crms_grid: the float64 oracle; flash_attention and
+                ssd_chunks: the plain version (ref.py), on whatever device
+                the tensors are
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import ref as _ref
+
+F32 = torch.float32
 
 
 # ----------------------------------------------------------------------------
@@ -48,3 +51,46 @@ def flash_attention(q, k, v, causal: bool = True, backend: str = "auto"):
         return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
                                    causal=causal)
     return _ref.flash_attention_plain(q, k, v, causal)
+
+
+# ----------------------------------------------------------------------------
+# SSD chunk scan — xh (B,S,H,P), bmat/cmat (B,S,N), da (B,S,H); see ssd.py
+# ----------------------------------------------------------------------------
+def ssd_chunks(xh, bmat, cmat, da, chunk: int = 128, backend: str = "auto"):
+    """Chunked SSD scan in float32 with chunks of Q = min(chunk, S): the
+    intra-chunk step (y_diag, chunk states and the chunks' cumsum of da)
+    through the CUDA kernel on CUDA tensors (``auto``) or its plain version,
+    then the inter-chunk
+    recurrence and the off-diagonal term in plain torch, as the reference's
+    ``kernels/ops.py::ssd_chunks``. Returns y (B, S, H, P) and the final
+    state (B, H, P, N). Raises ValueError where S is not a multiple of Q
+    (the reference's reshape fails there too)."""
+    if backend not in ("auto", "reference"):
+        raise ValueError(f"backend must be 'auto' or 'reference', got {backend!r}")
+    B, S, H, P = xh.shape
+    N = bmat.shape[-1]
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(f"ssd_chunks: sequence length {S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+    xh, bmat, cmat, da = (t.to(F32).contiguous() for t in (xh, bmat, cmat, da))
+    if backend == "auto" and xh.is_cuda:
+        from repro_torch.kernels.ssd import ssd_chunk_fwd
+
+        y_diag, states, cum = ssd_chunk_fwd(xh, bmat, cmat, da, chunk=Q)
+    else:
+        y_diag, states, cum = _ref.ssd_chunk_plain(xh, bmat, cmat, da, Q)
+    # inter-chunk recurrence + off-diagonal contribution (tiny, plain torch),
+    # on the chunk step's own cumsum of da
+    da_cum = cum.reshape(B, nc, Q, H)
+    chunk_decay = torch.exp(da_cum[:, :, -1, :])  # (B, nc, H)
+    state = torch.zeros_like(states[:, 0])
+    s_in = []
+    for n in range(nc):
+        s_in.append(state)
+        state = states[:, n] + chunk_decay[:, n, :, None, None] * state
+    s_in = torch.stack(s_in, dim=1)  # (B, nc, H, P, N): the state entering each chunk
+    y_off = torch.einsum("bnts,bnth,bnhps->bnthp", cmat.reshape(B, nc, Q, N),
+                         torch.exp(da_cum), s_in)
+    y = y_diag.reshape(B, nc, Q, H, P) + y_off
+    return y.reshape(B, S, H, P), state

@@ -9,6 +9,11 @@ CPU path of ``ops.crms_grid`` runs it and the tests hold the kernel to it.
 ``flash_attention_plain`` is the flash kernel's plain version (the same
 tiles, masks, online softmax and finalisation, in float32);
 ``attention_naive`` is the O(S²)-memory oracle.
+
+``ssd_chunk_plain`` is the SSD chunk kernel's plain version (the body of the
+reference's Pallas kernel per (batch, chunk, head), batched);
+``ssd_chunks_reference`` is the einsum oracle, a copy of the reference's
+``models/mamba.py::_ssd_chunks_ref``.
 """
 from __future__ import annotations
 
@@ -162,3 +167,103 @@ def attention_naive(q, k, v, causal: bool = True):
         s = torch.where(mask, s, -torch.inf)
     w = torch.softmax(s, dim=-1)
     return torch.einsum("bkgqt,btkh->bqkgh", w, v.to(F32)).to(q.dtype)
+
+
+# ----------------------------------------------------------------------------
+# SSD chunk scan — x (B, S, H, P), bmat/cmat (B, S, N), da (B, S, H)
+# ----------------------------------------------------------------------------
+SCAN_BLOCK = 16  # block length of the reference's cumulative sums (below)
+
+
+def cumsum_blocked(x, dim: int):
+    """float32 cumulative sum of ``x`` along ``dim`` in the order the
+    reference's ``jnp.cumsum`` takes on the CPU (XLA rewrites the cumulative
+    reduce-window into blocks): sequential within blocks of 16 positions, the
+    block totals scanned the same way (recursively) and added to every later
+    block. The chunked SSD subtracts cumsums of ~200 in size, so the order of
+    these sums is what the port and the reference differ by when it is not
+    the same; with it they agree bit for bit. Any device, any length."""
+    x = x.to(F32).movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= SCAN_BLOCK:
+        out = torch.empty_like(x)
+        acc = torch.zeros_like(x[..., 0])
+        for i in range(n):
+            acc = acc + x[..., i]
+            out[..., i] = acc
+        return out.movedim(-1, dim)
+    nb = -(-n // SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, nb * SCAN_BLOCK - n))
+    local = cumsum_blocked(xp.reshape(*x.shape[:-1], nb, SCAN_BLOCK), -1)
+    totals = cumsum_blocked(local[..., -1], -1)  # (..., nb), inclusive
+    out = torch.cat([local[..., :1, :], local[..., 1:, :] + totals[..., :-1, None]], dim=-2)
+    return out.reshape(*x.shape[:-1], nb * SCAN_BLOCK)[..., :n].movedim(-1, dim)
+
+
+def ssd_chunk_plain(x, bmat, cmat, da, chunk: int):
+    """Plain version of the SSD chunk kernel: per (batch, chunk, head) of
+    ``chunk`` positions, ``cum = cumsum(da)`` (``cumsum_blocked``), ``L =
+    where(i >= j, exp(cum_i - cum_j), 0)``, ``y_diag = (C Bᵀ ⊙ L) x`` and the
+    chunk state ``xᵀ (B ⊙ exp(cum_end - cum))``. Needs S % chunk == 0.
+    Returns y_diag (B, S, H, P), states (B, nc, H, P, N) and cum (B, S, H),
+    float32."""
+    B, S, H, P = x.shape
+    N = bmat.shape[-1]
+    Q = chunk
+    nc = S // Q
+    xc = x.to(F32).reshape(B, nc, Q, H, P)
+    bc = bmat.to(F32).reshape(B, nc, Q, N)
+    cc = cmat.to(F32).reshape(B, nc, Q, N)
+    cum = cumsum_blocked(da.reshape(B, nc, Q, H), dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q_i, Q_j, H)
+    pos = torch.arange(Q, device=x.device)
+    tri = (pos[:, None] >= pos[None, :])[:, :, None]
+    L = torch.where(tri, torch.exp(seg), 0.0)
+    scores = torch.einsum("bnis,bnjs->bnij", cc, bc)
+    y = torch.einsum("bnijh,bnjhp->bnihp", scores[..., None] * L, xc)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)
+    bw = bc[:, :, :, None, :] * decay_to_end[..., None]  # (B, nc, Q, H, N)
+    states = torch.einsum("bnthp,bnths->bnhps", xc, bw)
+    return y.reshape(B, S, H, P), states, cum.reshape(B, S, H)
+
+
+def ssd_chunks_reference(xh, bmat, cmat, da, chunk: int):
+    """Chunked SSD scan, the reference's einsum oracle
+    (``repro/models/mamba.py::_ssd_chunks_ref``, with its cumulative sums in
+    the reference's order): xh (B, S, H, P), bmat/cmat (B, S, N), da (B, S, H)
+    float32. Returns y (B, S, H, P) and the final state (B, H, P, N)."""
+    Bb, S, H, Pd = xh.shape
+    N = bmat.shape[-1]
+    Q = min(chunk, S)
+    nc = S // Q
+    xc = xh.reshape(Bb, nc, Q, H, Pd)
+    bc = bmat.reshape(Bb, nc, Q, N)
+    cc = cmat.reshape(Bb, nc, Q, N)
+    dac = da.reshape(Bb, nc, Q, H)
+
+    # intra-chunk (dual/attention form)
+    cs = cumsum_blocked(dac.permute(0, 1, 3, 2), dim=-1)  # (B, nc, H, Q)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
+    L = torch.exp(torch.where(mask, seg, -torch.inf))  # (B, nc, H, Q, Q)
+    scores = torch.einsum("bnqs,bnts->bnqt", cc, bc)
+    y_diag = torch.einsum("bnqt,bnhqt,bnthp->bnqhp", scores, L, xc)
+
+    # chunk states: S_n = sum_t decay_to_end[t] * B[t] x[t]
+    da_cum = cumsum_blocked(dac, dim=2)  # (B, nc, Q, H)
+    decay_to_end = torch.exp(da_cum[:, :, -1:, :] - da_cum)
+    states = torch.einsum("bnts,bnth,bnthp->bnhps", bc, decay_to_end, xc)
+
+    # inter-chunk recurrence
+    chunk_decay = torch.exp(da_cum[:, :, -1, :])  # (B, nc, H)
+    s_prev = torch.zeros((Bb, H, Pd, N), dtype=F32, device=xh.device)
+    s_in = []
+    for n in range(nc):
+        s_in.append(s_prev)
+        s_prev = states[:, n] + chunk_decay[:, n, :, None, None] * s_prev
+    s_in = torch.stack(s_in, dim=1)  # (B, nc, H, P, N)
+
+    # inter-chunk contribution: y_off[t] = C[t] · decay_in[t] · S_in
+    decay_in = torch.exp(da_cum)
+    y_off = torch.einsum("bnts,bnth,bnhps->bnthp", cc, decay_in, s_in)
+    return (y_diag + y_off).reshape(Bb, S, H, Pd), s_prev

@@ -1,2 +1,3 @@
 """The model substrate of the port: the dense family's layers
-(``layers``) and language model (``model``), on PyTorch tensors."""
+(``layers``), the Mamba2 mixer (``mamba``) and the language model
+(``model``), on PyTorch tensors."""

@@ -27,8 +27,9 @@ F32 = torch.float32
 class Runtime:
     """Execution context threaded through model apply. ``device=None`` is the
     CUDA device (RuntimeError without one). Unlike the reference, there is no
-    mesh (one device), and ``attn_backend="auto"`` runs the flash kernel on
-    CUDA tensors; ``"reference"`` runs its plain version."""
+    mesh (one device), and ``attn_backend="auto"`` runs the model's kernels
+    (the flash kernel of attention, the SSD chunk kernel of Mamba) on CUDA
+    tensors; ``"reference"`` runs their plain versions."""
 
     device: Any = None
     compute_dtype: torch.dtype = torch.bfloat16

@@ -1,5 +1,6 @@
-"""The dense language model of the reference's model substrate
-(``repro/models/model.py``), in PyTorch.
+"""The language model of the reference's model substrate
+(``repro/models/model.py``), in PyTorch: the dense and ssm (Mamba2)
+families.
 
 Entry points, as in the reference:
   init_params(cfg, generator, dtype, device)   -> LM with random weights
@@ -20,15 +21,15 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models.layers import Runtime
 
 F32 = torch.float32
-PORTED_BLOCKS = ("self_attn", "mlp")
+PORTED_BLOCKS = ("self_attn", "mlp", "mamba")
 # what is still to port, by the ROADMAP item that ports it
 REMAINING = "ROADMAP Queue 1, 'Model substrate: remaining blocks'"
 NOT_PORTED = {
     "moe": f"the MoE block ({REMAINING})",
-    "mamba": "the Mamba2/SSD block (ROADMAP Queue 1, 'mamba2-130m serving')",
     "cross_attn": f"cross-attention ({REMAINING})",
 }
 
@@ -44,7 +45,8 @@ def _check_ported(cfg: ModelConfig):
 
 
 class Block(nn.Module):
-    """One pre-norm residual block: ``norm`` and one of ``attn`` / ``mlp``."""
+    """One pre-norm residual block: ``norm`` and one of ``attn`` / ``mlp`` /
+    ``mamba``."""
 
     def __init__(self, kind: str, opts: dict, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -53,12 +55,14 @@ class Block(nn.Module):
         self.norm = L.Norm(cfg, device, dtype)
         if kind == "self_attn":
             self.attn = L.Attention(cfg, device, dtype)
+        elif kind == "mamba":
+            self.mamba = MB.Mamba(cfg, device, dtype)
         else:
             self.mlp = L.MLP(cfg, device, dtype)
 
 
 class LM(nn.Module):
-    """Dense-family parameters: ``embed`` (V, d), ``final_norm``, ``lm_head``
+    """Dense- and ssm-family parameters: ``embed`` (V, d), ``final_norm``, ``lm_head``
     (d, V) unless tied, and ``layers[i]`` = the blocks of one stage repeat.
     ``stage_of[i]`` is (stage index, repeat index) of layer i. Weights start
     at zero (norm weights at their reference init); ``init_params`` draws
@@ -88,7 +92,8 @@ class LM(nn.Module):
 def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
                 device=None) -> LM:
     """An LM with the reference's initialisation (``init_params``: normal
-    weights scaled by fan-in, norm weights and biases at their constants),
+    weights scaled by fan-in, the Mamba conv by 0.1, norm weights, biases
+    and the Mamba constants at their reference values),
     drawn from ``generator`` in float32 and cast to ``param_dtype``. The
     generator lives on the model's device."""
     lm = LM(cfg, device, param_dtype)
@@ -108,6 +113,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
                 for name in ("wq", "wk", "wv"):
                     normal_(getattr(block.attn, name), d**-0.5)
                 normal_(block.attn.wo, (cfg.n_heads * hd) ** -0.5)
+            elif block.kind == "mamba":
+                normal_(block.mamba.w_in, d**-0.5)
+                normal_(block.mamba.conv_w, 0.1)
+                normal_(block.mamba.w_out, block.mamba.w_out.shape[0] ** -0.5)
             else:
                 normal_(block.mlp.w_up, d**-0.5)
                 normal_(block.mlp.w_down, cfg.d_ff**-0.5)
@@ -126,6 +135,8 @@ def _apply_block(block: Block, x, cfg: ModelConfig, runtime: Runtime, *, positio
     if block.kind == "self_attn":
         y, new_cache = L.apply_attention(block.attn, h, cfg, runtime, positions=positions,
                                          causal=block.causal, cache=cache)
+    elif block.kind == "mamba":
+        y, new_cache = MB.apply_mamba(block.mamba, h, cfg, runtime, cache=cache)
     else:
         y = L.apply_mlp(block.mlp, h, cfg, runtime)
     return x + y, new_cache
@@ -159,7 +170,7 @@ def _no_extra(extra_inputs):
 
 def apply_lm(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs=None):
     """Full forward (prefill): tokens (B, S) -> logits (B, S, V), aux (0 for
-    the dense family)."""
+    the dense and ssm families)."""
     _no_extra(extra_inputs)
     tokens = _tokens(tokens, runtime)
     S = tokens.shape[1]
@@ -177,10 +188,13 @@ def apply_lm(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs=No
 def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
                dtype=torch.bfloat16):
     """Cache mirroring the stage structure: caches[f"stage{si}"][f"b{i}"] =
-    {"k", "v": (repeat, B, KV, max_len, hd), "index": (repeat,) int32}."""
+    {"k", "v": (repeat, B, KV, max_len, hd), "index": (repeat,) int32} for
+    attention, {"conv": (repeat, B, K-1, Ch) in ``dtype``, "ssm": (repeat, B,
+    H, P, N) float32 whatever ``dtype``} for Mamba."""
     _check_ported(cfg)
     hd = cfg.resolved_head_dim
     dev = runtime.device
+    m = cfg.mamba
     caches = {}
     for si, stage in enumerate(cfg.stages()):
         st = {}
@@ -192,6 +206,14 @@ def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
                     "v": torch.zeros(shape, dtype=dtype, device=dev),
                     "index": torch.zeros((stage.repeat,), dtype=torch.int32, device=dev),
                 }
+            elif kind == "mamba":
+                d_in, nh = m.d_inner(cfg.d_model), m.n_heads(cfg.d_model)
+                st[f"b{i}"] = {
+                    "conv": torch.zeros((stage.repeat, batch, m.d_conv - 1, d_in + 2 * m.d_state),
+                                        dtype=dtype, device=dev),
+                    "ssm": torch.zeros((stage.repeat, batch, nh, m.head_dim, m.d_state),
+                                       dtype=F32, device=dev),
+                }
         caches[f"stage{si}"] = st if st else None
     return caches
 
@@ -199,8 +221,9 @@ def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
 def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, index: int,
                  extra_inputs=None):
     """One decode step. tokens (B, 1); index: the step's position. Writes
-    this step's k/v into ``caches`` in place and returns (logits (B, 1, V),
-    caches) with every layer's cache index set to ``index``."""
+    this step's k/v (attention) or conv/ssm states (Mamba) into ``caches`` in
+    place and returns (logits (B, 1, V), caches) with every attention layer's
+    cache index set to ``index``."""
     _no_extra(extra_inputs)
     index = int(index)
     tokens = _tokens(tokens, runtime)
@@ -213,8 +236,12 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
             if block.kind == "self_attn":
                 blk = st[f"b{i}"]
                 cache = {"k": blk["k"][r], "v": blk["v"][r], "index": index}
+            elif block.kind == "mamba":
+                blk = st[f"b{i}"]
+                cache = {"conv": blk["conv"][r], "ssm": blk["ssm"][r]}
             x, _ = _apply_block(block, x, cfg, runtime, positions=positions, cache=cache)
     for st in caches.values():
         for blk in (st or {}).values():
-            blk["index"].fill_(index)
+            if "index" in blk:  # attention caches only; a Mamba cache has no index
+                blk["index"].fill_(index)
     return _head(lm, cfg, runtime, x), caches

@@ -1,5 +1,6 @@
-"""Batched serving engine: prefill, then greedy decode with a KV cache over a
-fixed number of batch slots, with the reference's semantics
+"""Batched serving engine: prefill, then greedy decode over a decode cache (the
+KV cache of attention, the conv/SSM state of Mamba2) over a fixed number of
+batch slots, with the reference's semantics
 (``repro/serve/engine.py``): requests are admitted in groups of up to
 ``slots``, left-padded with token 0 (no pad mask), prefilled by ``apply_lm``,
 the prompt replayed through decode steps to fill the cache, and decoded

@@ -1,6 +1,6 @@
-"""Card-only tests of the port: the hand-written CUDA ``crms_grid`` and
-flash-attention kernels against their plain versions, and the launches of
-the allocator path and of a prefill through them.
+"""Card-only tests of the port: the hand-written CUDA ``crms_grid``,
+flash-attention and SSD chunk kernels against their plain versions, and the
+launches of the allocator path and of a prefill through them.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -10,8 +10,8 @@ Without a CUDA device every test skips (the kernels have no CPU mode).
 The plain versions run on the same device, so both sides use CUDA's
 expf/logf; tolerances as chip_smoke.py states them: crms_grid rtol 1e-5 on
 lanes with ρ <= 0.99, 1e-4 on all stable lanes, sentinel lanes > 1e6; flash
-attention atol/rtol 2e-5 in float32 and 3e-2 in bfloat16 (the reference's
-bar, tests/test_kernels.py).
+attention atol/rtol 2e-5 in float32 and 3e-2 in bfloat16; the SSD chunk
+step atol 2e-5 / rtol 2e-4 (the reference's bars, tests/test_kernels.py).
 """
 import numpy as np
 import pytest
@@ -23,6 +23,7 @@ from repro_torch.core.profiler import make_tenant_mix
 from repro_torch.kernels import crms_grid as port_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.models.layers import Runtime
 from repro_torch.models.model import init_params
 from repro_torch.serve.step import make_prefill_step
@@ -130,5 +131,52 @@ def test_prefill_launches_the_flash_kernel_once_per_layer(cuda_device):
         logits[backend] = make_prefill_step(cfg, rt)(lm, {"tokens": tokens})
         torch.cuda.synchronize()
         assert flash_kernel.launches - before == (cfg.n_layers if backend == "auto" else 0)
+    err = (logits["auto"] - logits["reference"]).abs().max() / logits["reference"].abs().max()
+    assert float(err) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (4, 512, 24, 64, 128, 256), (1, 128, 2, 32, 16, 64), (2, 256, 4, 64, 32, 128),
+    (2, 8, 4, 16, 16, 256), (1, 100, 3, 32, 64, 50),
+])
+def test_ssd_kernel_matches_plain(cuda_device, B, S, H, P, N, chunk):
+    rng = np.random.default_rng(B * S + P)
+    x, bm, cm, z = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                    device=cuda_device)
+                    for shape in ((B, S, H, P), (B, S, N), (B, S, N), (B, S, H)))
+    bm, cm, da = 0.5 * bm, 0.5 * cm, -torch.nn.functional.softplus(z)
+    Q = min(chunk, S)
+    before = ssd_kernel.launches
+    got = ssd_kernel.ssd_chunk_fwd(x, bm, cm, da, chunk=Q)
+    y, final = ops.ssd_chunks(x, bm, cm, da, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 2
+    want = ref.ssd_chunk_plain(x, bm, cm, da, Q)
+    assert torch.equal(got[2], want[2])  # the cumsum: the same float32 sums in the same order
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=2e-5, rtol=2e-4)
+    # the kernel route against its plain route and against the einsum oracle
+    for want_y, want_final in (ops.ssd_chunks(x, bm, cm, da, chunk=chunk, backend="reference"),
+                               ref.ssd_chunks_reference(x, bm, cm, da, chunk)):
+        np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(), atol=2e-5, rtol=2e-4)
+        np.testing.assert_allclose(final.cpu().numpy(), want_final.cpu().numpy(), atol=2e-5,
+                                   rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_prefill_launches_the_ssd_kernel_once_per_layer(cuda_device):
+    cfg = get_config("mamba2-130m").reduced(n_layers=3)
+    lm = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device=cuda_device)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 64)),
+                             device=cuda_device)
+    logits = {}
+    for backend in ("auto", "reference"):
+        before = ssd_kernel.launches
+        rt = Runtime(cuda_device, torch.float32, backend)
+        logits[backend] = make_prefill_step(cfg, rt)(lm, {"tokens": tokens})
+        torch.cuda.synchronize()
+        assert ssd_kernel.launches - before == (cfg.n_layers if backend == "auto" else 0)
     err = (logits["auto"] - logits["reference"]).abs().max() / logits["reference"].abs().max()
     assert float(err) < 1e-4

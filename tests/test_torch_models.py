@@ -1,10 +1,11 @@
-"""The port's dense model (``repro_torch.models``) against the reference's
-(``repro.models``) on the same weights: ``interop.numpy_params`` draws a tree
-in the reference's layout, ``params_from_jax`` loads it into the port's
-``LM``. Reduced configurations, float32 compute, CPU (the flash attention's
-plain version). Bars as ``tests/test_models.py``: logits within 1e-4 of
-the reference relative to their max |logit|, decode equal to the full
-forward within 1e-4."""
+"""The port's model (``repro_torch.models``: the dense and ssm families)
+against the reference's (``repro.models``) on the same weights:
+``interop.numpy_params`` draws a tree in the reference's layout,
+``params_from_jax`` loads it into the port's ``LM``. Reduced configurations,
+float32 compute, CPU (the plain versions of the flash and SSD chunk kernels).
+Bars as ``tests/test_models.py``: logits within 1e-4 of the reference
+relative to their max |logit|, decode equal to the full forward within
+1e-4."""
 import numpy as np
 import pytest
 import torch
@@ -14,16 +15,19 @@ import jax
 import jax.numpy as jnp
 from repro.configs import get_config as ref_config
 from repro.models import layers as RL
+from repro.models import mamba as RMB
 from repro.models.model import apply_decode as ref_apply_decode
 from repro.models.model import apply_lm as ref_apply_lm
 from repro.models.model import init_cache as ref_init_cache
 from repro_torch import interop
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as MB
 from repro_torch.models.layers import Runtime
 from repro_torch.models.model import LM, apply_decode, apply_lm, init_cache, init_params
 
 DENSE = ["gemma-2b", "minitron-4b", "codeqwen1.5-7b", "command-r-plus-104b"]
+PORTED = DENSE + ["mamba2-130m"]
 REF_RT = RL.Runtime(mesh=None, data_axes=("data",), compute_dtype=jnp.float32)
 RT = Runtime("cpu", torch.float32)
 SEED = 0
@@ -45,7 +49,7 @@ def _rel(got, want):
     return float(np.max(np.abs(np.asarray(got, np.float64) - want)) / np.max(np.abs(want)))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_apply_lm_matches_reference(arch):
     cfg, rcfg, lm, params = _models(arch)
     toks = _tokens(cfg, 2, 32)
@@ -56,7 +60,7 @@ def test_apply_lm_matches_reference(arch):
     assert float(aux) == float(want_aux) == 0.0
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_full_forward(arch):
     cfg, rcfg, lm, params = _models(arch)
     B, S = 2, 16
@@ -68,7 +72,11 @@ def test_decode_matches_full_forward(arch):
         lg, cache = apply_decode(lm, cfg, RT, toks[:, t:t + 1], cache, t)
         steps.append(lg[:, 0])
     assert _rel(torch.stack(steps, dim=1).numpy(), full.numpy()) < 1e-4
-    assert torch.all(cache["stage0"]["b0"]["index"] == S - 1)
+    blk = cache["stage0"]["b0"]
+    if cfg.family == "ssm":  # a Mamba cache has no index; its SSM state is float32
+        assert "index" not in blk and blk["ssm"].dtype == torch.float32
+    else:
+        assert torch.all(blk["index"] == S - 1)
 
 
 def test_prefill_fill_then_decode_continues():
@@ -119,17 +127,91 @@ def test_prefill_fill_attention_branch_matches_reference(arch):
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def realized_params(cfg):
+    """The reference's realized parameter count: ``total_params()`` leaves
+    out each Mamba block's ``conv_b`` (Ch) and ``dt_bias`` (nh)
+    (``configs/base.py::_mamba_params``; the reference's own test accepts
+    that at rel 0.02), so add them back."""
+    if cfg.mamba is None:
+        return cfg.total_params()
+    m = cfg.mamba
+    d_in, nh = m.d_inner(cfg.d_model), m.n_heads(cfg.d_model)
+    n_mamba = sum(st.repeat for st in cfg.stages() for kind, _ in st.blocks if kind == "mamba")
+    return cfg.total_params() + n_mamba * (d_in + 2 * m.d_state + nh)
+
+
+@pytest.mark.parametrize("arch", PORTED)
 def test_param_count_matches_config(arch):
     cfg = get_config(arch).reduced()
+    want = realized_params(cfg)
     lm = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    assert sum(p.numel() for p in lm.parameters()) == cfg.total_params()
+    assert sum(p.numel() for p in lm.parameters()) == want
     tree = interop.numpy_params(cfg, SEED)
-    assert sum(a.size for a in jax.tree.leaves(tree)) == cfg.total_params()
-    want = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(
-        jax.eval_shape(lambda: __import__("repro.models.model", fromlist=["x"]).init_params(
-            ref_config(arch).reduced(), jax.random.PRNGKey(0)))))
-    assert want == cfg.total_params()
+    assert sum(a.size for a in jax.tree.leaves(tree)) == want
+    ref_tree = jax.eval_shape(lambda: __import__("repro.models.model", fromlist=["x"])
+                              .init_params(ref_config(arch).reduced(), jax.random.PRNGKey(0)))
+    assert sum(int(np.prod(a.shape)) for a in jax.tree.leaves(ref_tree)) == want
+    assert jax.tree.structure(ref_tree) == jax.tree.structure(tree)
+
+
+def test_mamba_param_count_at_full_width():
+    """mamba2-130m at full width: 128,983,488 realized leaves, 43,584 =
+    24 x (1792 + 24) more than total_params()."""
+    cfg = get_config("mamba2-130m")
+    assert cfg.total_params() == 128_939_904
+    assert realized_params(cfg) == 128_983_488
+    lm = LM(cfg, "meta")
+    assert sum(p.numel() for p in lm.parameters()) == realized_params(cfg)
+
+
+@pytest.mark.parametrize("with_cache", [False, True])
+def test_mamba_block_matches_reference(with_cache):
+    """apply_mamba against the reference's at S = 256 with chunk 64 (nc = 4,
+    so the inter-chunk recurrence runs): the no-cache branch, and the
+    prefill-fill branch with the conv and SSM states it leaves in the
+    cache."""
+    cfg, rcfg, lm, params = _models("mamba2-130m")
+    m = cfg.mamba
+    B, S = 2, 256
+    x = np.random.default_rng(3).standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    ref_p = jax.tree.map(lambda a: a[1], params["stage0"]["b0"]["mamba"])
+    d_in, nh = m.d_inner(cfg.d_model), m.n_heads(cfg.d_model)
+    conv_shape = (B, m.d_conv - 1, d_in + 2 * m.d_state)
+    ssm_shape = (B, nh, m.head_dim, m.d_state)
+    ref_cache = cache = None
+    if with_cache:
+        ref_cache = {"conv": jnp.zeros(conv_shape, jnp.float32),
+                     "ssm": jnp.zeros(ssm_shape, jnp.float32)}
+        cache = {"conv": torch.zeros(conv_shape), "ssm": torch.zeros(ssm_shape)}
+    want, want_cache = RMB.apply_mamba(ref_p, jnp.asarray(x), rcfg, REF_RT, cache=ref_cache,
+                                       chunk=64)
+    got, got_cache = MB.apply_mamba(lm.layers[1][0].mamba, torch.as_tensor(x), cfg, RT,
+                                    cache=cache, chunk=64)
+    assert got.shape == (B, S, cfg.d_model)
+    assert _rel(got.numpy(), want) < 1e-5
+    if not with_cache:
+        assert got_cache is None and want_cache is None
+        return
+    assert got_cache is cache  # written in place
+    assert _rel(cache["conv"].numpy(), want_cache["conv"]) < 1e-5
+    assert _rel(cache["ssm"].numpy(), want_cache["ssm"]) < 1e-5
+
+
+def test_mamba_init_params_constants():
+    """init_params keeps the reference's Mamba constants and float32 leaves
+    whatever the model dtype."""
+    cfg = get_config("mamba2-130m").reduced()
+    lm = init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16, device="cpu")
+    mb = lm.layers[0][0].mamba
+    for name in ("a_log", "d_skip", "dt_bias"):
+        assert getattr(mb, name).dtype == torch.float32
+    assert torch.all(mb.a_log == 0) and torch.all(mb.dt_bias == 0) and torch.all(mb.conv_b == 0)
+    assert torch.all(mb.d_skip == 1) and torch.all(mb.norm_w == 1)
+    assert mb.w_in.dtype == torch.bfloat16
+    assert float(mb.conv_w.float().std()) == pytest.approx(0.1, rel=0.1)
+    assert float(mb.w_out.float().std()) == pytest.approx(mb.w_out.shape[0] ** -0.5, rel=0.1)
+    cache = init_cache(cfg, RT, 2, 8, dtype=torch.bfloat16)["stage0"]["b0"]
+    assert cache["conv"].dtype == torch.bfloat16 and cache["ssm"].dtype == torch.float32
 
 
 def test_init_params_draws_from_the_generator():
@@ -142,7 +224,7 @@ def test_init_params_draws_from_the_generator():
     assert torch.all(a.final_norm.w == 0.0)  # gemma's (1 + w) norm starts at w = 0
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(DENSE)))
+@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)))
 def test_non_dense_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -36,7 +36,8 @@ def test_importing_the_port_leaves_jax_unloaded():
         "import sys, repro_torch.api, repro_torch.api.policies, repro_torch.core.crms, "
         "repro_torch.kernels.ops, repro_torch.interop, repro_torch.configs, "
         "repro_torch.models.model, repro_torch.serve.engine, repro_torch.serve.step, "
-        "repro_torch.kernels.flash_attention, repro_torch.launch.serve; "
+        "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd, "
+        "repro_torch.models.mamba, repro_torch.launch.serve; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -84,6 +85,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     cfg = get_config("gemma-2b").reduced()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LM(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LM(get_config("mamba2-130m").reduced())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg, torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):

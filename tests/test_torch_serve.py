@@ -30,6 +30,7 @@ from repro.serve.step import make_prefill_step as ref_prefill_step
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as port_kernel
+from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.models.layers import Runtime
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.step import make_prefill_step
@@ -46,6 +47,7 @@ ENTRIES = {
     "gemma-2b-hd256": ("gemma-2b", {"head_dim": 256}),
     "minitron-4b": ("minitron-4b", {}),
     "codeqwen1.5-7b": ("codeqwen1.5-7b", {}),
+    "mamba2-130m": ("mamba2-130m", {}),
 }
 MARGIN = 1e-3  # tokens must agree where the reference's top-1/top-2 margin exceeds this
 LOGIT_RTOL = 1e-4  # prefill logits, relative to their max |logit|
@@ -123,10 +125,12 @@ def golden():
         return json.load(f)
 
 
-def test_engine_tokens_match_reference_engine():
-    """The reduced gemma-2b through both engines: identical tokens."""
-    want = _ref_run("gemma-2b")
-    tokens, logits = _port_run("gemma-2b")
+@pytest.mark.parametrize("name", ["gemma-2b", "mamba2-130m"])
+def test_engine_tokens_match_reference_engine(name):
+    """The reduced gemma-2b and mamba2-130m through both engines: identical
+    tokens."""
+    want = _ref_run(name)
+    tokens, logits = _port_run(name)
     assert tokens == want["tokens"]
     assert all(len(t) == SETUP["max_new"] for t in tokens)
     assert_matches_golden(want, tokens, logits)
@@ -135,10 +139,10 @@ def test_engine_tokens_match_reference_engine():
 @pytest.mark.parametrize("name", sorted(ENTRIES))
 def test_port_engine_matches_golden(golden, name):
     """Every golden entry (the cases chip_smoke.py serves on the card), on the
-    CPU: the flash attention's plain version in prefill."""
-    before = port_kernel.launches
+    CPU: the plain versions of the flash and SSD chunk kernels in prefill."""
+    before = port_kernel.launches, ssd_kernel.launches
     tokens, logits = _port_run(name)
-    assert port_kernel.launches == before  # CPU tensors never reach the kernel
+    assert (port_kernel.launches, ssd_kernel.launches) == before  # CPU tensors never reach them
     assert_matches_golden(golden["entries"][name], tokens, logits)
 
 
