@@ -44,8 +44,9 @@ from repro_torch.models.model import init_cache, init_params  # noqa: E402
 from repro_torch.serve.step import make_decode_step, make_prefill_step  # noqa: E402
 
 TOP = 10  # kernels listed by device time
-# each model's hand-written kernel: its host module and its CUDA function's name
-KERNELS = {FULL_ARCH: (flash_attention, "flash_fwd_kernel"),
+# each model's hand-written kernel: its host module and a part of its CUDA
+# functions' names ("flash_fwd": flash_fwd_wgmma in bf16, flash_fwd_kernel in f32)
+KERNELS = {FULL_ARCH: (flash_attention, "flash_fwd"),
            SSM_ARCH: (ssd, "ssd_chunk_kernel")}
 
 

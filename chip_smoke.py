@@ -9,14 +9,17 @@ is non-zero:
   1. device  — the CUDA device's name and nvidia-smi's name/power limit.
   2. build   — compiles the crms_grid, flash_attention and ssd CUDA kernels
                from the checkout's sources, all nvcc runs at once; ptxas'
-               registers and spills.
+               registers and spills, and each bf16 flash instantiation's
+               registers and spills on a line of its own (a spill fails the
+               run).
   3. kernel  — crms_grid against its plain-torch version on numpy-seeded
                inputs at the main path's shape (72, 64) in per-app mode and a
                search-sized (20000, 64) in sum mode: rtol 1e-5 on lanes with
                rho <= 0.99, 1e-4 on all stable lanes (float32 with CUDA's
                expf/logf against torch's; near rho -> 1 the Erlang tail
                amplifies last-place differences), sentinel lanes > 1e6 in both.
-               Times (CUDA events) of both and the lower bound from the shapes.
+               Times (CUDA events) of both, the kernel's graph-timed device
+               time (graph_ms, below) and the lower bound from the shapes.
   4. main    — allocate("crms", ...) on the card for the paper's four apps
                (fitted) and make_tenant_mix(M), M in {8, 16, 32, 64}, against
                the JAX reference's results in tests/data/torch_port_golden.json:
@@ -25,16 +28,23 @@ is non-zero:
                per refinement iteration.
   5. vector  — crms_priority (a per-app alpha vector) at M=8, which evaluates
                the grid with the float64 oracle, so it launches no kernel.
-  6. flash   — the flash-attention kernel against its plain version on
-               numpy-seeded inputs: the serving path's shape (B 4, S 512, KV 1,
-               G 8, hd 256, causal) in bf16 and f32, (1, 256, 4, 1, 128)
-               causal and the padding case (1, Sq 70, Skv 130, 2, 2, 32)
-               non-causal; atol/rtol 2e-5 in f32, 3e-2 in bf16 (the
-               reference's bar), and in bf16 each element within one ulp of
-               the plain version's with fewer than 1 % differing. At the
-               path's shape: the kernel's, the plain
-               version's and scaled_dot_product_attention's times (CUDA
-               events) and the lower bound from the shapes.
+  6. flash   — the flash-attention kernel (bf16: wgmma with TMA-fed K/V,
+               the MQA heads packed per tile; f32: the CUDA-core kernel)
+               against its plain version on numpy-seeded inputs: the serving
+               path's shape (B 4, S 512, KV 1, G 8, hd 256, causal) in bf16
+               and f32, (1, 256, 4, 1, 128) causal and the padding case (1,
+               Sq 70, Skv 130, 2, 2, 32) non-causal; atol/rtol 2e-5 in f32,
+               3e-2 in bf16 (the reference's bar), and in bf16 each element
+               within one ulp of the plain version's with fewer than 1 %
+               differing. At the path's shape: the kernel's, the plain
+               version's and scaled_dot_product_attention's times, each as
+               ms (CUDA events around back-to-back calls from Python, as in
+               earlier runs) and as graph_ms / plain_graph_ms /
+               library_graph_ms (device time: 20 calls captured in one CUDA
+               graph, replayed between CUDA events; where a launch's device
+               work is shorter than the host's cost per call, ms measures
+               the host and graph_ms the card); the lower bound from the
+               shapes.
   7. ssd     — the SSD chunk kernel against its plain version on
                numpy-seeded inputs: the serving path's shape (B 4, S 512,
                H 24, P 64, N 128, chunk 256), the reference's test shapes
@@ -43,8 +53,8 @@ is non-zero:
                within atol 2e-5 / rtol 2e-4 (the reference's bar), the cumsum
                bit for bit, and ops.ssd_chunks through the kernel against its
                plain route within the same bar. At the path's shape: the
-               kernel's and the plain version's times (CUDA events) and the
-               lower bound from the shapes.
+               kernel's and the plain version's times (CUDA events), the
+               kernel's graph_ms and the lower bound from the shapes.
   8. serve   — the port's Engine on the card (float32, attn_backend "auto")
                for reduced gemma-2b (hd 32 and 256), minitron-4b,
                codeqwen1.5-7b and mamba2-130m against the JAX Engine's results
@@ -59,7 +69,7 @@ is non-zero:
                per prefill; prefill logits through the kernel within 3e-2
                (relative to max |logit|) of the plain version's; prefill and
                decode-step times, tokens/s, peak memory, the kernel's share of
-               a prefill.
+               a prefill from its ms (as earlier runs) and from its graph_ms.
  10. mamba   — mamba2-130m at full width and depth, as phase 9: 24 ssd
                launches per prefill (48 in the run), the reference's realized
                parameter count, prefill logits through the kernel within 3e-2
@@ -156,6 +166,52 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls=20, replays=5):
+    """Device time of one call of ``fn``: ``calls`` calls captured in one
+    CUDA graph after a warm-up on a side stream, the graph replayed
+    between two CUDA events, divided by the calls. The host's cost per call
+    (Python, ctypes, the wrapper's checks) stays out; the device work and
+    the gaps between kernels inside the graph remain."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def ptxas_entries(log):
+    """ptxas' -v report per compiled entry: {name: {"registers",
+    "spill_stores", "spill_loads"}}."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entries[name] = {}
+        elif name and "spill stores" in line:
+            words = line.replace(",", "").split()
+            entries[name]["spill_stores"] = int(words[words.index("spill") - 2])
+            entries[name]["spill_loads"] = int(words[-4])
+        elif name and "Used" in line and "registers" in line:
+            words = line.replace(",", "").split()
+            entries[name]["registers"] = int(words[words.index("registers") - 1])
+    return entries
+
+
 def check_kernel(B, M, reduce, reps, plain_reps, n_range=(3, 12)):
     """Kernel vs plain version on the card; returns the phase's numbers."""
     from repro_torch.kernels import crms_grid, ref
@@ -188,6 +244,7 @@ def check_kernel(B, M, reduce, reps, plain_reps, n_range=(3, 12)):
     if not np.all(np.isfinite(out)):
         raise AssertionError("crms_grid: non-finite output")
     ms = cuda_ms(kernel, reps)
+    kernel_graph_ms = graph_ms(kernel)
     plain_ms = cuda_ms(plain, plain_reps, warmup=1)
     bound, bound_by = grid_bound_ms(n, M, per_app)
     res = {
@@ -195,7 +252,8 @@ def check_kernel(B, M, reduce, reps, plain_reps, n_range=(3, 12)):
         "sentinel_lanes": int((~stable).sum()),
         "max_abs_err": float(np.max(np.abs(out[stable] - want[stable]))),
         "max_rel_err": float(np.max(np.abs(out[stable] - want[stable]) / np.abs(want[stable]))),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+        "ms": ms, "graph_ms": kernel_graph_ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": bound_by,
     }
     log("kernel", **res)
     return res
@@ -327,8 +385,11 @@ def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
         res["library_max_abs_err"] = float((lib_out.float().cpu() - torch.as_tensor(want))
                                            .abs().max())
         res["ms"] = cuda_ms(kernel, 50)
+        res["graph_ms"] = graph_ms(kernel)
         res["plain_ms"] = cuda_ms(plain, 5, warmup=1)
+        res["plain_graph_ms"] = graph_ms(plain, calls=5, replays=2)
         res["library_ms"] = cuda_ms(lib, 50)
+        res["library_graph_ms"] = graph_ms(lib)
         res["bound_ms"], res["bound_by"] = flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype)
     log("flash", **res)
     return res
@@ -391,6 +452,7 @@ def check_ssd(B, S, H, P, N, chunk, timed=False):
            "max_abs_y": float(want[0].abs().max())}
     if timed:
         res["ms"] = cuda_ms(kernel, 50)
+        res["graph_ms"] = graph_ms(kernel)
         res["plain_ms"] = cuda_ms(plain, 5, warmup=1)
         res["bound_ms"], res["bound_by"] = ssd_bound_ms(B, S, H, P, N, Q)
     log("ssd", **res)
@@ -468,10 +530,12 @@ def serve_reduced(name, entry, setup):
     return launches
 
 
-def serve_full(arch, kernel, kernel_ms, phase):
+def serve_full(arch, kernel, kernel_times, phase):
     """``arch`` at full width on the card; returns the launches of
     ``kernel`` (the flash_attention or ssd module, one launch per layer per
-    prefill) in the Engine's run (the serving path, counted from zero)."""
+    prefill) in the Engine's run (the serving path, counted from zero).
+    ``kernel_times`` holds the kernel's ``ms`` and ``graph_ms`` at the
+    path's shape, from which its share of a prefill is reported."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import Runtime
     from repro_torch.models.model import init_cache, init_params
@@ -534,7 +598,9 @@ def serve_full(arch, kernel, kernel_ms, phase):
         generated_tokens_per_s=n_req * max_new / wall, prefill_ms=prefill_ms,
         decode_step_ms=decode_ms, **{f"{kname}_launches": launches,
                                      f"{kname}_share_of_prefill":
-                                     cfg.n_layers * kernel_ms / prefill_ms},
+                                     cfg.n_layers * kernel_times["ms"] / prefill_ms,
+                                     f"{kname}_graph_share_of_prefill":
+                                     cfg.n_layers * kernel_times["graph_ms"] / prefill_ms},
         max_memory_allocated_gb=peak / 1e9, logits_rel_err_vs_plain=err,
         top1_agreement_vs_plain=top1)
     return launches
@@ -573,6 +639,15 @@ def main() -> int:
         for line in built["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {kernel_name} ptxas:", line.strip(), flush=True)
+    bf16_flash = {name: e for name, e in ptxas_entries(builds["flash_attention"]["log"]).items()
+                  if "flash_fwd_wgmma" in name}
+    if not bf16_flash:
+        raise AssertionError("build: no bf16 flash instantiation in ptxas' report")
+    for name, entry in sorted(bf16_flash.items()):
+        hd = name.split("flash_fwd_wgmmaILi")[1].split("E")[0]
+        log("build", kernel="flash_attention", dtype="bfloat16", hd=hd, **entry)
+        if entry["spill_stores"] or entry["spill_loads"]:
+            raise AssertionError(f"build: the bf16 flash kernel at hd {hd} spills {entry}")
 
     # 3. kernel against its plain version
     path_shape = check_kernel(72, 64, "per_app", reps=2000, plain_reps=20)
@@ -614,12 +689,12 @@ def main() -> int:
         serve_reduced(case, entry, serve_golden["setup"])
 
     # 9. gemma-2b at full width: the serving path, counted from zero
-    flash_launches = serve_full(FULL_ARCH, flash_attention, flash_path["ms"], "gemma")
+    flash_launches = serve_full(FULL_ARCH, flash_attention, flash_path, "gemma")
     if flash_launches == 0:
         raise AssertionError("the serving path never launched the flash kernel")
 
     # 10. mamba2-130m at full width: its serving path, counted from zero
-    ssd_launches = serve_full(SSM_ARCH, ssd, ssd_path["ms"], "mamba")
+    ssd_launches = serve_full(SSM_ARCH, ssd, ssd_path, "mamba")
     if ssd_launches == 0:
         raise AssertionError("the mamba serving path never launched the ssd kernel")
 
@@ -627,19 +702,22 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "crms_grid", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": main_launches, "max_abs_err": path_shape["max_abs_err"],
-        "ms": path_shape["ms"], "plain_ms": path_shape["plain_ms"],
+        "ms": path_shape["ms"], "graph_ms": path_shape["graph_ms"],
+        "plain_ms": path_shape["plain_ms"],
         "bound_ms": path_shape["bound_ms"], "bound_by": path_shape["bound_by"],
         "library_ms": None,
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,
         "max_abs_err": flash_path["max_abs_err"], "ms": flash_path["ms"],
-        "plain_ms": flash_path["plain_ms"], "bound_ms": flash_path["bound_ms"],
+        "graph_ms": flash_path["graph_ms"], "plain_ms": flash_path["plain_ms"],
+        "plain_graph_ms": flash_path["plain_graph_ms"], "bound_ms": flash_path["bound_ms"],
         "bound_by": flash_path["bound_by"], "library_ms": flash_path["library_ms"],
+        "library_graph_ms": flash_path["library_graph_ms"],
     }, {
         "name": "ssd_chunk", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
         "launches": ssd_launches, "max_abs_err": ssd_path["max_abs_err"],
-        "ms": ssd_path["ms"], "plain_ms": ssd_path["plain_ms"],
+        "ms": ssd_path["ms"], "graph_ms": ssd_path["graph_ms"], "plain_ms": ssd_path["plain_ms"],
         "bound_ms": ssd_path["bound_ms"], "bound_by": ssd_path["bound_by"],
         "library_ms": None,
     }]}), flush=True)

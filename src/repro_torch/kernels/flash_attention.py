@@ -6,7 +6,9 @@ The kernel replaces the Pallas TPU kernel
 with an online softmax in float32, the causal mask aligned top-left, keys and
 queries past the sequence masked, output in q's dtype. It takes the model's
 layouts directly: q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd), float32 or
-bfloat16, head_dim in {32, 64, 128, 256}.
+bfloat16, head_dim in {32, 64, 128, 256}. bfloat16 runs the wgmma kernel
+(tensor cores, TMA-fed K/V, the G query heads of a kv head packed into one
+64-row tile where G divides 64); float32 the CUDA-core kernel.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use by
 ``kernels/build.py`` (a plain C launcher, loaded with ``ctypes``); nothing is
@@ -80,6 +82,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, KV, G, hd,
             float(hd ** -0.5), int(causal), DTYPES[q.dtype], stream,
         )
+    if status == -1:
+        raise RuntimeError("flash_attention: cuTensorMapEncodeTiled failed on the TMA maps")
     if status != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {status}")
     launches += 1

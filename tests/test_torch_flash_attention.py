@@ -4,7 +4,9 @@ against the reference's Pallas kernel in interpret mode and its naive oracle,
 on numpy-seeded inputs. Tolerances are the reference's own
 (``tests/test_kernels.py``): 2e-5 in float32, 3e-2 in bfloat16. The CUDA
 kernel itself is held to this plain version on the card
-(``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+(``tests/test_torch_gpu.py``, ``chip_smoke.py``); the arithmetic of its bf16
+route (P split into two bf16 terms before P·V) is checked here against that
+plain version and the Pallas kernel."""
 import numpy as np
 import pytest
 import torch
@@ -104,3 +106,54 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.as_tensor(a) for a in _qkv(6, 1, 8, 8, 1, 1, 32))
     with pytest.raises(ValueError, match="CUDA"):
         port_kernel.flash_attention_fwd(q, k, v, causal=True)
+
+
+def _split_p_blocks(q, k, v, causal: bool, kb: int = 64):
+    """The plain version's streaming softmax over tiles of ``kb`` keys (the
+    bf16 CUDA kernel's 64), with P replaced by bf16(P) + bf16(P - bf16(P))
+    before P·V, as the kernel feeds P to the bf16 tensor cores in two terms.
+    Returns q's dtype in q's layout."""
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    q_pos = torch.arange(Sq)[:, None]
+    m = torch.full((B, KV, G, Sq), -torch.inf)
+    l = torch.zeros((B, KV, G, Sq))
+    acc = torch.zeros((B, KV, G, Sq, hd))
+    for k_start in range(0, Skv, kb):
+        kt, vt = kf[:, k_start:k_start + kb], vf[:, k_start:k_start + kb]
+        s = torch.einsum("bqkgh,btkh->bkgqt", qf, kt) * hd**-0.5
+        k_pos = torch.arange(k_start, k_start + kt.shape[1])[None, :]
+        mask = k_pos < Skv
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        s = torch.where(mask, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), 0.0)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float()
+        acc = (acc * corr[..., None] + torch.einsum("bkgqt,btkh->bkgqh", p_hi, vt)
+               + torch.einsum("bkgqt,btkh->bkgqh", p_lo, vt))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Sq,KV,G,hd", [(2, 128, 1, 8, 64), (1, 96, 2, 2, 256)])
+def test_split_p_bf16_meets_the_card_check(B, Sq, KV, G, hd):
+    """The bf16 kernel's arithmetic passes the card's unchanged bf16 check
+    against the plain version (each element within one bf16 ulp, fewer than
+    1 % differing) and the reference's 3e-2 against the Pallas kernel."""
+    tq, tk, tv = (torch.as_tensor(a).to(torch.bfloat16) for a in _qkv(B * Sq + hd, B, Sq, Sq, KV,
+                                                                       G, hd))
+    split = _split_p_blocks(tq, tk, tv, True).float().numpy()
+    plain = ref.flash_attention_plain(tq, tk, tv, True).float().numpy()
+    np.testing.assert_allclose(split, plain, atol=2e-5, rtol=2.0 ** -7)
+    assert np.mean(split != plain) < 0.01
+    jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (tq, tk, tv))
+    pallas = np.asarray(ref_ops.flash_attention(jq, jk, jv, causal=True, backend="interpret"),
+                        np.float32)
+    np.testing.assert_allclose(split, pallas, atol=3e-2, rtol=3e-2)

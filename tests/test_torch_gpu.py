@@ -96,6 +96,12 @@ def test_main_path_launches_the_kernel(cuda_device):
     (4, 512, 512, 1, 8, 256, True, torch.bfloat16), (4, 512, 512, 1, 8, 256, True, torch.float32),
     (1, 256, 256, 4, 1, 128, True, torch.float32), (1, 70, 130, 2, 2, 32, False, torch.float32),
     (1, 70, 130, 2, 2, 32, True, torch.bfloat16), (2, 192, 192, 2, 3, 64, True, torch.float32),
+    # the bf16 wgmma kernel at every head dim and both tile modes: heads
+    # packed per tile (G divides 64) and one head per tile (G 3); ragged
+    # Sq != Skv; a tile mostly past Sq
+    (1, 64, 64, 1, 8, 32, True, torch.bfloat16), (2, 128, 128, 2, 4, 64, True, torch.bfloat16),
+    (2, 192, 192, 2, 3, 64, True, torch.bfloat16), (1, 200, 333, 1, 8, 128, False, torch.bfloat16),
+    (1, 17, 17, 1, 8, 256, True, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, KV, G, hd, causal, dtype):
     rng = np.random.default_rng(B * Sq + hd)

@@ -1,10 +1,12 @@
 """The port stands alone: no module of ``repro_torch`` (and not
 ``chip_smoke.py``) imports JAX or the ``repro`` package, importing the port
-leaves JAX unloaded, and its entry points default to the CUDA device and
-raise without one instead of falling back to the CPU."""
+leaves JAX unloaded, no source of the port calls a library attention kernel,
+and its entry points default to the CUDA device and raise without one
+instead of falling back to the CPU."""
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -29,6 +31,79 @@ def _imported_roots(path):
 def test_no_jax_or_reference_imports(path):
     assert path.exists()
     assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}
+
+
+PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "src" / "repro_torch").rglob("*.cu"))
+# What the port may not call: torch's fused attention entry points (also when
+# reached by name through getattr) and the attention packages. torch.matmul
+# stays allowed: the model's projections are plain GEMMs, not attention.
+LIBRARY_ATTENTION_NAMES = {
+    "scaled_dot_product_attention", "_scaled_dot_product_flash_attention",
+    "_scaled_dot_product_efficient_attention", "_scaled_dot_product_cudnn_attention",
+    "_flash_attention_forward", "_efficient_attention_forward",
+    "multi_head_attention_forward", "MultiheadAttention",
+}
+LIBRARY_ATTENTION_MODULES = {"flash_attn", "xformers"}
+# In the CUDA sources: cuBLAS / cuDNN headers or symbols, and CUTLASS's
+# device-level GEMM (CuTe/CUTLASS building blocks inside a kernel are allowed).
+LIBRARY_HEADERS = re.compile(r"^\s*#\s*include\s*[<\"](cublas|cudnn|cutlass/gemm/device)", re.M)
+LIBRARY_SYMBOLS = re.compile(r"\b(cublas\w*|cudnn\w*|CUBLAS\w*|CUDNN\w*|GemmUniversal\w*)\b")
+
+
+def _library_attention_calls(path):
+    """Names of library attention kernels that a Python source reaches: as an
+    attribute or name it uses, as a string (getattr), or as a module it
+    imports."""
+    found = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Attribute):
+            found.add(node.attr)
+        elif isinstance(node, ast.Name):
+            found.add(node.id)
+        elif isinstance(node, ast.Constant) and isinstance(node.value, str):
+            found.add(node.value)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            found |= {alias.name for alias in node.names}
+    return (found & LIBRARY_ATTENTION_NAMES) | (_imported_roots(path) & LIBRARY_ATTENTION_MODULES)
+
+
+def _library_kernel_uses(path):
+    """cuBLAS/cuDNN/CUTLASS-GEMM headers and symbols of a CUDA source, its
+    comments left out."""
+    code = re.sub(r"//[^\n]*|/\*.*?\*/", "", path.read_text(), flags=re.S)
+    return set(LIBRARY_HEADERS.findall(code)) | set(LIBRARY_SYMBOLS.findall(code))
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_library_attention_or_gemm_kernels(path):
+    uses = _library_attention_calls if path.suffix == ".py" else _library_kernel_uses
+    assert not uses(path)
+
+
+def test_library_call_checks_see_calls_not_prose(tmp_path):
+    """The checks above find a call however it is spelled, and not a comment
+    or docstring that names the library."""
+    calls = {
+        "a.py": "import torch.nn.functional as F\nF.scaled_dot_product_attention(q, k, v)\n",
+        "b.py": "import torch\ngetattr(torch.nn.functional, 'scaled_dot_product_attention')\n",
+        "c.py": "from torch.nn.functional import scaled_dot_product_attention as sdpa\n",
+        "d.py": "from flash_attn import flash_attn_func\n",
+        "e.cu": "#include <cublas_v2.h>\nint f() { return 0; }\n",
+        "f.cu": "void g(cublasHandle_t h) { cublasSgemm(h); }\n",
+        "g.cu": "#include <cutlass/gemm/device/gemm.h>\n",
+    }
+    prose = {
+        "h.py": '"""Not scaled_dot_product_attention, nor cuBLAS."""\nx = torch.matmul(a, b)\n',
+        "i.cu": "// no cuBLAS, cuDNN or CUTLASS here\n/* cublasSgemm */ int f();\n",
+    }
+    for name, text in {**calls, **prose}.items():
+        (tmp_path / name).write_text(text)
+    check = {".py": _library_attention_calls, ".cu": _library_kernel_uses}
+    for name in calls:
+        assert check[pathlib.Path(name).suffix](tmp_path / name), name
+    for name in prose:
+        assert not check[pathlib.Path(name).suffix](tmp_path / name), name
 
 
 def test_importing_the_port_leaves_jax_unloaded():
