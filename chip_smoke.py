@@ -9,9 +9,9 @@ is non-zero:
   1. device  — the CUDA device's name and nvidia-smi's name/power limit.
   2. build   — compiles the crms_grid, flash_attention and ssd CUDA kernels
                from the checkout's sources, all nvcc runs at once; ptxas'
-               registers and spills, and each bf16 flash instantiation's
-               registers and spills on a line of its own (a spill fails the
-               run).
+               registers and spills, and each bf16 flash instantiation's and
+               each ssd_chunk instantiation's (P, N) registers and spills on a
+               line of its own (a spill fails the run).
   3. kernel  — crms_grid against its plain-torch version on numpy-seeded
                inputs at the main path's shape (72, 64) in per-app mode and a
                search-sized (20000, 64) in sum mode: rtol 1e-5 on lanes with
@@ -45,14 +45,16 @@ is non-zero:
                work is shorter than the host's cost per call, ms measures
                the host and graph_ms the card); the lower bound from the
                shapes.
-  7. ssd     — the SSD chunk kernel against its plain version on
-               numpy-seeded inputs: the serving path's shape (B 4, S 512,
+  7. ssd     — the SSD chunk kernel (C Bᵀ once per head group, products in
+               3xTF32 mma.sync) against its plain version on numpy-seeded
+               inputs: the serving path's shape (B 4, S 512,
                H 24, P 64, N 128, chunk 256), the reference's test shapes
                (1, 128, 2, 32, 16, 64) and (2, 256, 4, 64, 32, 128), and the
                ragged chunk (2, 8, 4, 16, 16, 256); y_diag and the states
                within atol 2e-5 / rtol 2e-4 (the reference's bar), the cumsum
                bit for bit, and ops.ssd_chunks through the kernel against its
-               plain route within the same bar. At the path's shape: the
+               plain route within the same bar; the log line names the head
+               group and the product route. At the path's shape: the
                kernel's and the plain version's times (CUDA events), the
                kernel's graph_ms and the lower bound from the shapes.
   8. serve   — the port's Engine on the card (float32, attn_backend "auto")
@@ -80,6 +82,7 @@ the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
 the script prints no result and exits non-zero.
 """
 import json
+import re
 import subprocess
 import sys
 import time
@@ -102,10 +105,11 @@ SEED = 0
 KW = dict(caps_cpu=30.0, power_span=150.0, alpha=1.4, beta=0.2)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, float32 outside
-# the tensor cores and dense bf16 on the tensor cores in operations/s.
+# the tensor cores, dense bf16 and TF32 on the tensor cores in operations/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
 PEAK_BF16_OPS_S = 989e12
+PEAK_TF32_OPS_S = 495e12
 # float32 operations per lane of the crms_grid function: per term of the
 # Erlang head sum (log k!, term, mask, running max, two exps, rescaled sum)
 # and once per lane (Eq. (1), mu, rho, Stirling, tail, Ws, utility).
@@ -398,18 +402,28 @@ def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
 def ssd_bound_ms(B, S, H, P, N, Q):
     """Least time for the SSD chunk step on these shapes: x, B, C and da read
     once and y_diag, the states and the cumsum written once over the memory
-    rate, against the float32 operations over the float32 rate: per (batch,
-    chunk, head), the scores C Bᵀ and the product with x over the Q(Q+1)/2
-    pairs j <= i (2N + 2P multiply-adds), the decay of each pair (subtract,
-    exp, multiply), the state's Q x P x N multiply-adds with the decay of
-    each position's B row, and the cumsum. Returns (ms, "bytes" |
-    "operations")."""
-    tiles = B * (S // Q) * H
+    rate, against the least work for the function. Products, as
+    multiply-adds of 2 operations: the scores C Bᵀ once per (batch, chunk)
+    (B and C are shared by all heads) over the Q(Q+1)/2 pairs j <= i, 2N
+    each; per (batch, chunk, head) the pairs' product with x, 2P each, and
+    the state's Q·P·N multiply-adds. They run at the tensor cores' TF32
+    rate over three, the fastest way this card keeps float32 accuracy (one
+    TF32 product misses the reference's bar). Elementwise, at the float32
+    rate: each pair's decay per head (subtract, exp, multiply), each
+    position's decay to the chunk's end per head (subtract, exp) and its
+    product with the narrower of the position's B row and x row (min(N, P)),
+    and the cumsum (Q adds per head). The two compute times add; the bound
+    is the larger of their sum and the memory time. At (4, 512, 24, 64, 128,
+    256): 1.68e9 product and 2.2e7 elementwise operations, 0.0105 ms against
+    0.0101 ms of bytes. Returns (ms, "bytes" | "operations")."""
+    chunks = B * (S // Q)
     pairs = Q * (Q + 1) / 2
-    n_ops = tiles * (pairs * (2 * N + 2 * P + 3) + Q * (2 * P * N + N + 2) + Q)
+    products = chunks * (pairs * 2 * N + H * (pairs * 2 * P + 2 * Q * P * N))
+    elementwise = chunks * H * (pairs * 3 + Q * (2 + min(N, P)) + Q)
     n_bytes = 4 * (2 * B * S * H * P + 2 * B * S * N + 2 * B * S * H
                    + B * (S // Q) * H * P * N)
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_OPS_S
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = products / (PEAK_TF32_OPS_S / 3) + elementwise / PEAK_F32_OPS_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -447,7 +461,8 @@ def check_ssd(B, S, H, P, N, chunk, timed=False):
         g, w = g.cpu().numpy(), w.cpu().numpy()
         np.testing.assert_allclose(g, w, atol=2e-5, rtol=2e-4, err_msg=f"{what} {name}")
         errs.append(float(np.max(np.abs(g - w))))
-    res = {"shape": f"({B},{S},{H},{P},{N},{chunk})", "max_abs_err": max(errs[:2]),
+    res = {"shape": f"({B},{S},{H},{P},{N},{chunk})", "head_group": ssd.head_group(),
+           "products": ssd.PRODUCTS, "max_abs_err": max(errs[:2]),
            "ssd_chunks_max_abs_err": max(errs[2:]),
            "max_abs_y": float(want[0].abs().max())}
     if timed:
@@ -648,6 +663,16 @@ def main() -> int:
         log("build", kernel="flash_attention", dtype="bfloat16", hd=hd, **entry)
         if entry["spill_stores"] or entry["spill_loads"]:
             raise AssertionError(f"build: the bf16 flash kernel at hd {hd} spills {entry}")
+    ssd_entries = {tuple(map(int, re.search(r"ssd_chunk_kernelILi(\d+)ELi(\d+)E", name).groups())):
+                   e for name, e in ptxas_entries(builds["ssd"]["log"]).items()
+                   if "ssd_chunk_kernel" in name}
+    if len(ssd_entries) != 12:
+        raise AssertionError(f"build: {len(ssd_entries)} ssd_chunk instantiations in ptxas' "
+                             "report, 12 expected (P in 16/32/64, N in 16/32/64/128)")
+    for (P, N), entry in sorted(ssd_entries.items()):
+        log("build", kernel="ssd_chunk", P=P, N=N, **entry)
+        if entry["spill_stores"] or entry["spill_loads"]:
+            raise AssertionError(f"build: the ssd_chunk kernel at P {P}, N {N} spills {entry}")
 
     # 3. kernel against its plain version
     path_shape = check_kernel(72, 64, "per_app", reps=2000, plain_reps=20)

@@ -5,9 +5,15 @@ ssd_chunk_fwd``: per (batch, chunk, head) the Mamba2 SSD intra-chunk dual
 form ``y_diag = (C Bᵀ ⊙ tril(exp(segsum(da)))) x`` and the chunk state
 ``xᵀ (B ⊙ exp(cum_end - cum))``, in float32, with ``cum = cumsum(da)`` in
 the reference's order of sums (``ref.cumsum_blocked``), which it also
-returns. It takes the model's layouts directly: x (B, S, H, P), B and C
-(B, S, N), da (B, S, H); P in {16, 32, 64}, N in {16, 32, 64, 128}, a chunk
-of 1..256 positions that divides S.
+returns bit for bit. It takes the model's layouts directly: x (B, S, H, P),
+B and C (B, S, N), da (B, S, H); P in {16, 32, 64}, N in {16, 32, 64, 128},
+a chunk of 1..256 positions that divides S.
+
+The kernel forms each score tile C Bᵀ once for a group of ``head_group()``
+heads (B and C are shared by all heads) and runs its three products on the
+tensor cores in error-compensated TF32 (three TF32 products per float32
+product), so y_diag and the states agree with the plain version
+(``ref.ssd_chunk_plain``) within the reference's 2e-5 / 2e-4, not bit for bit.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use by
 ``kernels/build.py`` (a plain C launcher, loaded with ``ctypes``); nothing is
@@ -22,6 +28,7 @@ import torch
 
 from repro_torch.kernels.build import build_library
 
+PRODUCTS = "3xTF32 mma.sync m16n8k8"  # the route of the kernel's three products
 HEAD_DIMS = (16, 32, 64)
 STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 256
@@ -39,8 +46,18 @@ def build(force: bool = False) -> dict:
     fn = lib.ssd_chunk_launch
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ssd_chunk_head_group.argtypes = []
+    lib.ssd_chunk_head_group.restype = ctypes.c_int
     _lib = lib
     return info
+
+
+def head_group() -> int:
+    """Heads that share one score tile in the kernel (a compile-time
+    constant of csrc/ssd.cu); builds the kernel if needed."""
+    if _lib is None:
+        build()
+    return _lib.ssd_chunk_head_group()
 
 
 def ssd_chunk_fwd(x, bmat, cmat, da, *, chunk: int):
@@ -75,6 +92,9 @@ def ssd_chunk_fwd(x, bmat, cmat, da, *, chunk: int):
             raise ValueError(f"ssd_chunk_fwd: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"ssd_chunk_fwd: {name} must be contiguous")
+    # the kernel copies x, B and C rows in 16-byte pieces; a view that starts
+    # mid-piece is copied to fresh (aligned) storage
+    x, bmat, cmat = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, bmat, cmat))
     if _lib is None:
         build()
     y = torch.empty_like(x)

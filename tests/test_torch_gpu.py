@@ -145,6 +145,10 @@ def test_prefill_launches_the_flash_kernel_once_per_layer(cuda_device):
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (4, 512, 24, 64, 128, 256), (1, 128, 2, 32, 16, 64), (2, 256, 4, 64, 32, 128),
     (2, 8, 4, 16, 16, 256), (1, 100, 3, 32, 64, 50),
+    # H not a multiple of the kernel's head group; one-position chunks; a
+    # chunk of 64 at N 128, P 16
+    (1, 128, 5, 32, 64, 64), (2, 512, 25, 64, 128, 256), (2, 16, 3, 16, 16, 1),
+    (2, 256, 4, 16, 128, 64),
 ])
 def test_ssd_kernel_matches_plain(cuda_device, B, S, H, P, N, chunk):
     rng = np.random.default_rng(B * S + P)
@@ -168,6 +172,26 @@ def test_ssd_kernel_matches_plain(cuda_device, B, S, H, P, N, chunk):
         np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(), atol=2e-5, rtol=2e-4)
         np.testing.assert_allclose(final.cpu().numpy(), want_final.cpu().numpy(), atol=2e-5,
                                    rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_takes_views_that_start_off_16_bytes(cuda_device):
+    """x, B and C as contiguous views one float into their storage: the
+    wrapper copies them to aligned storage for the kernel's 16-byte loads."""
+    B, S, H, P, N, Q = 1, 128, 3, 32, 64, 64
+    rng = np.random.default_rng(9)
+    views = [torch.as_tensor(scale * rng.standard_normal(1 + int(np.prod(shape))),
+                             dtype=torch.float32, device=cuda_device)[1:].view(shape)
+             for shape, scale in (((B, S, H, P), 1.0), ((B, S, N), 0.5), ((B, S, N), 0.5))]
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in views)
+    x, bm, cm = views
+    da = -torch.nn.functional.softplus(torch.as_tensor(rng.standard_normal((B, S, H)),
+                                                       dtype=torch.float32, device=cuda_device))
+    got = ssd_kernel.ssd_chunk_fwd(x, bm, cm, da, chunk=Q)
+    want = ref.ssd_chunk_plain(x, bm, cm, da, Q)
+    assert torch.equal(got[2], want[2])
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), atol=2e-5, rtol=2e-4)
 
 
 @pytest.mark.gpu

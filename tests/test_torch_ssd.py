@@ -6,6 +6,9 @@ Tolerances are the reference's own (``tests/test_kernels.py``): atol 2e-5 /
 rtol 2e-4 against the oracle, atol 1e-4 / rtol 1e-3 against the sequential
 recurrence. The CUDA kernel itself is held to this plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -143,3 +146,114 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         port_kernel.ssd_chunk_fwd(*arrays, chunk=16)
     assert port_kernel.launches == before
+
+
+# --- the CUDA kernel's arithmetic, emulated on the CPU -----------------------
+# csrc/ssd.cu runs its three products (the scores C Bᵀ, (S ⊙ L) x and the
+# states) on the tensor cores in TF32: each float32 operand a is split as hi =
+# tf32(a), lo = tf32(a - hi), rounded to nearest with ties away (cvt.rna), and
+# lo·hi + hi·lo + hi·hi is summed in float32. The shapes are
+# tests/test_torch_gpu.py's for the kernel; the first five are where one TF32
+# product alone fails the bar.
+GPU_SHAPES = [(4, 512, 24, 64, 128, 256), (1, 128, 2, 32, 16, 64), (2, 256, 4, 64, 32, 128),
+              (2, 8, 4, 16, 16, 256), (1, 100, 3, 32, 64, 50), (1, 128, 5, 32, 64, 64),
+              (2, 512, 25, 64, 128, 256), (2, 16, 3, 16, 16, 1), (2, 256, 4, 16, 128, 64)]
+
+
+def _tf32(a):
+    """cvt.rna.tf32.f32 on float32 bits: the magnitude rounded to 10 mantissa
+    bits, ties away from zero."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _products(eq, a, b, terms):
+    """einsum ``eq`` of float32 operands on TF32: three products (lo·hi,
+    hi·lo, hi·hi, summed in that order) or one (hi·hi)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return torch.einsum(eq, a_hi, b_hi)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _ssd_chunk_tf32(x, bmat, cmat, da, chunk, terms):
+    """The kernel's function with its products on TF32 operands: the scores
+    once per (batch, chunk), the decay and mask in float32 as the plain
+    version, the states as (x ⊙ exp(cum_end - cum))ᵀ B."""
+    B, S, H, P = x.shape
+    N = bmat.shape[-1]
+    Q, nc = chunk, S // chunk
+    xc = x.reshape(B, nc, Q, H, P)
+    bc, cc = bmat.reshape(B, nc, Q, N), cmat.reshape(B, nc, Q, N)
+    cum = ref.cumsum_blocked(da.reshape(B, nc, Q, H), dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q_i, Q_j, H)
+    pos = torch.arange(Q)
+    tri = (pos[:, None] >= pos[None, :])[:, :, None]
+    scores = _products("bnis,bnjs->bnij", cc, bc, terms)
+    pm = torch.where(tri, scores[..., None] * torch.exp(seg), 0.0)
+    y = _products("bnijh,bnjhp->bnihp", pm, xc, terms)
+    xw = xc * torch.exp(cum[:, :, -1:, :] - cum)[..., None]
+    states = _products("bnthp,bnts->bnhps", xw, bc, terms)
+    return y.reshape(B, S, H, P), states
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", GPU_SHAPES)
+def test_three_tf32_products_meet_the_card_check(B, S, H, P, N, chunk):
+    """Three TF32 products per float32 product stay within the card check's
+    atol 2e-5 / rtol 2e-4 of the plain version (y_diag and states); one TF32
+    product misses it at the first five shapes."""
+    x, bm, cm, da = _t(_inputs(B * S + P, B, S, H, P, N))
+    Q = min(chunk, S)
+    want_y, want_states, _ = ref.ssd_chunk_plain(x, bm, cm, da, Q)
+    y, states = _ssd_chunk_tf32(x, bm, cm, da, Q, terms=3)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), **TOL)
+    np.testing.assert_allclose(states.numpy(), want_states.numpy(), **TOL)
+    if GPU_SHAPES.index((B, S, H, P, N, chunk)) < 5:
+        y1, states1 = _ssd_chunk_tf32(x, bm, cm, da, Q, terms=1)
+        outside = [not np.allclose(g.numpy(), w.numpy(), **TOL)
+                   for g, w in ((y1, want_y), (states1, want_states))]
+        assert any(outside), "one TF32 product was expected to miss the bar"
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """_tf32 keeps 10 mantissa bits: exact on values that have no more,
+    ties away from zero, and at most half a TF32 ulp off elsewhere."""
+    exact = torch.tensor([1.0, -1.5, 1.0 + 2.0 ** -10, 3.0 * 2.0 ** -20], dtype=torch.float32)
+    assert torch.equal(_tf32(exact), exact)
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)], dtype=torch.float32)
+    assert _tf32(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    a = torch.as_tensor(np.random.default_rng(7).standard_normal(10000), dtype=torch.float32)
+    assert float(((_tf32(a) - a).abs() / a.abs()).max()) <= 2.0 ** -11
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_ssd_bound_counts_the_least_work_at_the_serving_shape():
+    """chip_smoke.ssd_bound_ms at (4, 512, 24, 64, 128, 256): the scores once
+    per (batch, chunk), the products at a third of the TF32 tensor rate, the
+    elementwise work at the float32 rate, against the bytes."""
+    smoke = _chip_smoke()
+    B, S, H, P, N, Q = 4, 512, 24, 64, 128, 256
+    chunks, pairs = B * S // Q, Q * (Q + 1) // 2
+    products = chunks * pairs * 2 * N + chunks * H * (pairs * 2 * P + 2 * Q * P * N)
+    elementwise = chunks * H * (3 * pairs + Q * (2 + min(N, P)) + Q)
+    assert products == 1_681_129_472 and elementwise == 22_241_280
+    ms, bound_by = smoke.ssd_bound_ms(B, S, H, P, N, Q)
+    want = 1e3 * (products / (495e12 / 3) + elementwise / 67e12)
+    assert bound_by == "operations" and ms == pytest.approx(want, rel=1e-12)
+    n_bytes = 4 * (2 * B * S * H * P + 2 * B * S * N + 2 * B * S * H + chunks * H * P * N)
+    t_bytes = 1e3 * n_bytes / 3.35e12
+    assert t_bytes == pytest.approx(0.0101, abs=5e-5) and t_bytes < ms
+    # the scores do not scale with the heads: two more heads add only their own work
+    more, _ = smoke.ssd_bound_ms(B, S, H + 2, P, N, Q)
+    per_head = chunks * (pairs * 2 * P + 2 * Q * P * N) / (495e12 / 3) \
+        + chunks * (3 * pairs + Q * (2 + min(N, P)) + Q) / 67e12
+    assert more - ms == pytest.approx(1e3 * 2 * per_head, rel=1e-9)
