@@ -45,7 +45,7 @@ from repro_torch.serve.step import make_decode_step, make_prefill_step  # noqa: 
 
 TOP = 10  # kernels listed by device time
 # each model's hand-written kernel: its host module and a part of its CUDA
-# functions' names ("flash_fwd": flash_fwd_wgmma in bf16, flash_fwd_kernel in f32)
+# functions' names ("flash_fwd": flash_fwd_wgmma in bf16, flash_fwd_tf32 in f32)
 KERNELS = {FULL_ARCH: (flash_attention, "flash_fwd"),
            SSM_ARCH: (ssd, "ssd_chunk_kernel")}
 

@@ -9,9 +9,10 @@ is non-zero:
   1. device  — the CUDA device's name and nvidia-smi's name/power limit.
   2. build   — compiles the crms_grid, flash_attention and ssd CUDA kernels
                from the checkout's sources, all nvcc runs at once; ptxas'
-               registers and spills, and each bf16 flash instantiation's and
-               each ssd_chunk instantiation's (P, N) registers and spills on a
-               line of its own (a spill fails the run).
+               registers and spills, and each flash instantiation's (bf16 and
+               f32, hd 32/64/128/256) and each ssd_chunk instantiation's (P,
+               N) registers and spills on a line of its own (a spill fails
+               the run).
   3. kernel  — crms_grid against its plain-torch version on numpy-seeded
                inputs at the main path's shape (72, 64) in per-app mode and a
                search-sized (20000, 64) in sum mode: rtol 1e-5 on lanes with
@@ -19,7 +20,8 @@ is non-zero:
                expf/logf against torch's; near rho -> 1 the Erlang tail
                amplifies last-place differences), sentinel lanes > 1e6 in both.
                Times (CUDA events) of both, the kernel's graph-timed device
-               time (graph_ms, below) and the lower bound from the shapes.
+               time (graph_ms, below) and the lower bound from the shapes;
+               the graph-replayed launch floor (a one-element kernel).
   4. main    — allocate("crms", ...) on the card for the paper's four apps
                (fitted) and make_tenant_mix(M), M in {8, 16, 32, 64}, against
                the JAX reference's results in tests/data/torch_port_golden.json:
@@ -28,12 +30,14 @@ is non-zero:
                per refinement iteration.
   5. vector  — crms_priority (a per-app alpha vector) at M=8, which evaluates
                the grid with the float64 oracle, so it launches no kernel.
-  6. flash   — the flash-attention kernel (bf16: wgmma with TMA-fed K/V,
-               the MQA heads packed per tile; f32: the CUDA-core kernel)
-               against its plain version on numpy-seeded inputs: the serving
-               path's shape (B 4, S 512, KV 1, G 8, hd 256, causal) in bf16
-               and f32, (1, 256, 4, 1, 128) causal and the padding case (1,
-               Sq 70, Skv 130, 2, 2, 32) non-causal; atol/rtol 2e-5 in f32,
+  6. flash   — the flash-attention kernel (bf16: wgmma with TMA-fed K/V;
+               f32: 3xTF32 mma.sync with cp.async-fed K/V; both with the MQA
+               heads packed per tile) against its plain version on
+               numpy-seeded inputs: the serving path's shape (B 4, S 512, KV
+               1, G 8, hd 256, causal) in bf16 and f32, (1, 256, 4, 1, 128)
+               causal and the padding case (1, Sq 70, Skv 130, 2, 2, 32)
+               non-causal in both, (2, 192, 2, 3, 64) causal (one head a
+               tile) in f32; atol/rtol 2e-5 in f32,
                3e-2 in bf16 (the reference's bar), and in bf16 each element
                within one ulp of the plain version's with fewer than 1 %
                differing. At the path's shape: the kernel's, the plain
@@ -44,7 +48,8 @@ is non-zero:
                graph, replayed between CUDA events; where a launch's device
                work is shorter than the host's cost per call, ms measures
                the host and graph_ms the card); the lower bound from the
-               shapes.
+               shapes. The kernels line holds the f32 route's numbers under
+               the flash entry's "float32".
   7. ssd     — the SSD chunk kernel (C Bᵀ once per head group, products in
                3xTF32 mma.sync) against its plain version on numpy-seeded
                inputs: the serving path's shape (B 4, S 512,
@@ -116,6 +121,9 @@ PEAK_TF32_OPS_S = 495e12
 OPS_PER_TERM = 14
 OPS_PER_LANE = 40
 MAX_N = 128
+# float32 operations of the online softmax per attention score: scale,
+# running max, subtraction, exp, sum.
+SOFTMAX_OPS = 5
 # gemma-2b and mamba2-130m at full width and depth, the serving shape that
 # phases 9 and 10 check and benchmarks_torch/profile_serve.py profiles:
 # requests of PROMPT_LEN tokens in SLOTS slots over a MAX_LEN-token cache.
@@ -196,6 +204,14 @@ def graph_ms(fn, calls=20, replays=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (calls * replays)
+
+
+def launch_floor_ms():
+    """graph_ms of a trivial kernel (one float incremented in place): the
+    device time that any one launch takes in a replayed CUDA graph, the
+    floor of a kernel whose work is a few microseconds or less."""
+    x = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: x.add_(1.0))
 
 
 def ptxas_entries(log):
@@ -314,15 +330,26 @@ def run_entry(name, golden, device):
 
 def flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype):
     """Least time for attention on these shapes: q, k, v read once and the
-    output written once over the memory rate, against 4·B·H·Sq·Skv·hd
-    operations (halved for causal) over the peak rate of the input type
-    (tensor-core bf16, or float32). Returns (ms, "bytes" | "operations")."""
+    output written once over the memory rate, against the products' 4·B·H·
+    Sq·Skv·hd operations (halved for causal). bf16: at the bf16 tensor-core
+    rate. float32: at the tensor cores' TF32 rate over three, the fastest way
+    this card keeps float32 accuracy (one TF32 product misses the reference's
+    bar), plus the softmax's elementwise work at the float32 rate: per score
+    (halved for causal) a scale, a running max, a subtraction, an exp and a
+    sum. At (4, 512, 512, 1, 8, 256) causal in float32: 4.29e9 product and
+    2.1e7 elementwise operations, 0.0263 ms against 0.0113 ms of bytes.
+    Returns (ms, "bytes" | "operations")."""
     H = KV * G
-    n_ops = 4.0 * B * H * Sq * Skv * hd * (0.5 if causal else 1.0)
+    share = 0.5 if causal else 1.0
+    products = 4.0 * B * H * Sq * Skv * hd * share
     elem = torch.finfo(dtype).bits // 8
     n_bytes = elem * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
-    peak = PEAK_BF16_OPS_S if dtype == torch.bfloat16 else PEAK_F32_OPS_S
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / peak
+    if dtype == torch.bfloat16:
+        t_ops = products / PEAK_BF16_OPS_S
+    else:
+        elementwise = SOFTMAX_OPS * B * H * Sq * Skv * share
+        t_ops = products / (PEAK_TF32_OPS_S / 3) + elementwise / PEAK_F32_OPS_S
+    t_bytes = n_bytes / PEAK_BYTES_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -654,15 +681,17 @@ def main() -> int:
         for line in built["log"].splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {kernel_name} ptxas:", line.strip(), flush=True)
-    bf16_flash = {name: e for name, e in ptxas_entries(builds["flash_attention"]["log"]).items()
-                  if "flash_fwd_wgmma" in name}
-    if not bf16_flash:
-        raise AssertionError("build: no bf16 flash instantiation in ptxas' report")
-    for name, entry in sorted(bf16_flash.items()):
-        hd = name.split("flash_fwd_wgmmaILi")[1].split("E")[0]
-        log("build", kernel="flash_attention", dtype="bfloat16", hd=hd, **entry)
-        if entry["spill_stores"] or entry["spill_loads"]:
-            raise AssertionError(f"build: the bf16 flash kernel at hd {hd} spills {entry}")
+    flash_entries = ptxas_entries(builds["flash_attention"]["log"])
+    for dtype, fn in (("bfloat16", "flash_fwd_wgmma"), ("float32", "flash_fwd_tf32")):
+        found = {int(re.search(fn + r"ILi(\d+)E", name).group(1)): e
+                 for name, e in flash_entries.items() if fn in name}
+        if sorted(found) != [32, 64, 128, 256]:
+            raise AssertionError(f"build: {dtype} flash instantiations {sorted(found)} in "
+                                 "ptxas' report, hd 32/64/128/256 expected")
+        for hd, entry in sorted(found.items()):
+            log("build", kernel="flash_attention", dtype=dtype, hd=hd, **entry)
+            if entry["spill_stores"] or entry["spill_loads"]:
+                raise AssertionError(f"build: the {dtype} flash kernel at hd {hd} spills {entry}")
     ssd_entries = {tuple(map(int, re.search(r"ssd_chunk_kernelILi(\d+)ELi(\d+)E", name).groups())):
                    e for name, e in ptxas_entries(builds["ssd"]["log"]).items()
                    if "ssd_chunk_kernel" in name}
@@ -677,7 +706,9 @@ def main() -> int:
     # 3. kernel against its plain version
     path_shape = check_kernel(72, 64, "per_app", reps=2000, plain_reps=20)
     check_kernel(20000, 64, "sum", reps=200, plain_reps=5, n_range=(8, 20))
-    log("kernel", library_equivalent="none (no single PyTorch call computes Erlang-C Ws)")
+    floor_ms = launch_floor_ms()
+    log("kernel", library_equivalent="none (no single PyTorch call computes Erlang-C Ws)",
+        launch_floor_graph_ms=floor_ms)
 
     # 4. the main path, counted from zero
     crms_grid.launches = 0
@@ -698,10 +729,11 @@ def main() -> int:
 
     # 6. flash kernel against its plain version
     flash_path = check_flash(4, 512, 512, 1, 8, 256, True, torch.bfloat16, timed=True)
-    check_flash(4, 512, 512, 1, 8, 256, True, torch.float32, timed=True)
+    flash_f32 = check_flash(4, 512, 512, 1, 8, 256, True, torch.float32, timed=True)
     for dtype in (torch.float32, torch.bfloat16):
         check_flash(1, 256, 256, 4, 1, 128, True, dtype)
         check_flash(1, 70, 130, 2, 2, 32, False, dtype)
+    check_flash(2, 192, 192, 2, 3, 64, True, torch.float32)  # one head a tile (G 3)
 
     # 7. ssd kernel against its plain version
     ssd_path = check_ssd(4, 512, 24, 64, 128, 256, timed=True)
@@ -730,7 +762,7 @@ def main() -> int:
         "ms": path_shape["ms"], "graph_ms": path_shape["graph_ms"],
         "plain_ms": path_shape["plain_ms"],
         "bound_ms": path_shape["bound_ms"], "bound_by": path_shape["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "launch_floor_graph_ms": floor_ms,
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,
@@ -739,6 +771,9 @@ def main() -> int:
         "plain_graph_ms": flash_path["plain_graph_ms"], "bound_ms": flash_path["bound_ms"],
         "bound_by": flash_path["bound_by"], "library_ms": flash_path["library_ms"],
         "library_graph_ms": flash_path["library_graph_ms"],
+        "float32": {key: flash_f32[key] for key in (
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms", "bound_ms",
+            "bound_by", "library_ms", "library_graph_ms")},
     }, {
         "name": "ssd_chunk", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
         "launches": ssd_launches, "max_abs_err": ssd_path["max_abs_err"],

@@ -3,9 +3,10 @@ a shared library with a plain C interface, loaded with ``ctypes``.
 
 Each source under ``csrc/`` is compiled at first use (never at import) into
 ``build/repro_torch/lib<name>_<hash>.so`` under the repository root, named by
-a hash of the source, so an edited source is rebuilt and an unchanged one is
-reused. No fast math and no contraction of a*b+c by the compiler, so a
-kernel rounds operation by operation as its plain torch version does.
+a hash of the source and of the headers under ``csrc/`` (``*.cuh``), so an
+edited source or header is rebuilt and an unchanged one is reused. No fast
+math and no contraction of a*b+c by the compiler, so a kernel rounds
+operation by operation as its plain torch version does.
 """
 from __future__ import annotations
 
@@ -33,14 +34,22 @@ def _nvcc(name: str) -> str:
     raise RuntimeError(f"{name}: nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def source_digest(source: Path) -> str:
+    """Hash of a kernel source and of every ``*.cuh`` header beside it (the
+    headers it may include), in name order."""
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build_library(name: str, force: bool = False) -> tuple[ctypes.CDLL, dict]:
     """Compile ``csrc/<name>.cu`` (if its hashed library is missing or
     ``force``) and load it. Returns the library and {"seconds", "library",
     "log"}; the log holds ptxas' register/spill report when this call
     compiled. A failed nvcc raises RuntimeError with its output."""
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    lib_path = BUILD_DIR / f"lib{name}_{source_digest(source)}.so"
     t0 = time.perf_counter()
     log = ""
     if force or not lib_path.exists():

@@ -44,12 +44,48 @@
 //     diagonal, Skv or Sq, and the output divided by l through one IEEE
 //     reciprocal per row and a correctly rounded FMA step per element.
 //
-// float32: flash_fwd_kernel, the products on the float32 pipes (CUDA cores)
-// from shared memory: one block per (q tile of 32 rows, query head, batch);
-// 8 warps of 4 query rows each, one key of the 32-key tile per lane; Q and
-// each K/V tile staged once in shared memory as float32, K rows padded by 4
-// floats so the lanes' 16-byte loads hit distinct banks. Its bar (2e-5)
-// excludes TF32, so the tensor cores wait for a 3xTF32 redesign.
+// float32: flash_fwd_tf32. What bounds it on this card: at the serving
+// shape the products are 4.29e9 operations and float32 accuracy on the tensor
+// cores costs three TF32 products each (below), 0.026 ms at 495/3 TFLOP/s
+// beside ~0.0003 ms of softmax at the float32 rate and 0.011 ms of bytes.
+// What the design does:
+//   - both products on the tensor cores, mma.sync m16n8k8 TF32 with float32
+//     accumulators, in error-compensated TF32: each operand a is split as
+//     hi = tf32(a), lo = tf32(a - hi) (rounded to nearest, ties away: the
+//     value of cvt.rna), and lo·hi, hi·lo, then hi·hi go into one
+//     accumulator. One TF32 product keeps ~3 digits and misses the 2e-5 bar
+//     by 38-55x; three stay within it (tests/test_torch_flash_attention.py
+//     emulates both on the CPU). S = Q K^T takes its k-steps into two
+//     accumulators in turn (summed once per tile), so that more independent
+//     products are in flight;
+//   - P stays in registers: the m16n8 accumulator of S holds keys 2t and
+//     2t + 1 of the thread's rows where an A operand wants t and t + 4, so
+//     P V runs over a permuted k (logical t -> key 2t, t + 4 -> 2t + 1) and
+//     reads the V rows in the same order. The softmax (max, expf, rescale,
+//     l summed from the float32 P) runs on the CUDA cores in float32;
+//   - MQA/GQA heads packed per tile as in the bf16 kernel (row r: position
+//     p0 + r / G, head r % G; one head a tile where G does not divide 64),
+//     so each K/V tile is staged once for all G heads;
+//   - causal balance by splitting the keys: one 64-row q tile a block, its 8
+//     warps in two groups of 4 warps x 16 rows, group g on the K/V tiles kt
+//     with kt % 2 == g; at the end group 1 hands its (m, l, acc) to group 0
+//     through shared memory, which merges the two online softmaxes. So both
+//     groups stay busy and a block's time is half its tile's keys. The
+//     blocks go heaviest tile first, so the light ones fill the SMs as the
+//     heavy ones end. A warp skips the K/V tiles above its rows' diagonal
+//     and masks only tiles that cross the diagonal, Skv or Sq;
+//   - K/V tiles of 32 keys (16 at hd 256, where Q and two stages of two
+//     32-key K/V pairs would pass the 227 KB of shared memory) double-
+//     buffered with 16-byte cp.async, the next step's two tiles in flight
+//     while the current ones compute; rows past Skv are zero-filled by the
+//     copy. Q is staged once and its fragments are split as they load.
+//     Shared-memory rows are padded by 4 floats, so every fragment load hits
+//     32 banks;
+//   - the output is acc / max(l, 1e-30) by IEEE division, as the plain
+//     version.
+// On the card the same design with register-tiled fmaf products was 1.58x
+// slower, and pairing q tiles t and last - t in a block (the bf16 kernel's
+// balance) 1.13x slower (PERF.md §6).
 //
 // Raw PTX (wgmma.mma_async, cp.async.bulk.tensor, mbarrier), no CUTLASS or
 // CuTe headers, so the file builds in seconds; the TMA maps are encoded on
@@ -61,184 +97,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
-
-// ---------------------------------------------------------------------------
-// float32: the CUDA-core kernel
-// ---------------------------------------------------------------------------
-
-constexpr int WARPS = 8;
-constexpr int ROWS = 4;                 // query rows per warp
-constexpr int BQ = WARPS * ROWS;        // query rows per block
-constexpr int BK = 32;                  // keys per tile: one per lane
-constexpr int THREADS = WARPS * 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(BQ) * HD + size_t(BK) * (HD + 4) + size_t(BK) * HD);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Sq, int Skv, int KV, int G, float scale, int causal) {
-  constexpr int KSTRIDE = HD + 4;
-  constexpr int CPL = HD / 32;  // output columns per lane: lane + 32 * c
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                 // (BQ, HD)
-  float* ks = qs + BQ * HD;         // (BK, KSTRIDE)
-  float* vs = ks + BK * KSTRIDE;    // (BK, HD)
-
-  const int q_start = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const size_t q_row = size_t(KV) * G * HD;  // stride of one position in q / out
-  const size_t k_row = size_t(KV) * HD;      // stride of one position in k / v
-  const T* qb = q + size_t(b) * Sq * q_row + size_t(h) * HD;
-  T* ob = o + size_t(b) * Sq * q_row + size_t(h) * HD;
-  const size_t kv_off = size_t(b) * Skv * k_row + size_t(h / G) * HD;
-  const T* kb = k + kv_off;
-  const T* vb = v + kv_off;
-
-  for (int i = threadIdx.x; i < BQ * HD; i += THREADS) {
-    const int r = i / HD, c = i % HD;
-    const int s = q_start + r;
-    qs[i] = s < Sq ? to_f32(qb[size_t(s) * q_row + c]) : 0.f;
-  }
-
-  float acc[ROWS][CPL];
-  float m[ROWS], l[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
-  }
-
-  int n_kb = (Skv + BK - 1) / BK;
-  if (causal) n_kb = min(n_kb, (q_start + BQ - 1) / BK + 1);  // skip tiles above the diagonal
-  const float* qw = qs + warp * ROWS * HD;
-  const float* krow = ks + lane * KSTRIDE;
-
-  for (int kt = 0; kt < n_kb; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < BK * HD; i += THREADS) {
-      const int r = i / HD, c = i % HD;
-      const int t = k_start + r;
-      const bool ok = t < Skv;
-      ks[r * KSTRIDE + c] = ok ? to_f32(kb[size_t(t) * k_row + c]) : 0.f;
-      vs[r * HD + c] = ok ? to_f32(vb[size_t(t) * k_row + c]) : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this lane's key against the warp's rows
-    float s[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < HD; c += 4) {
-      const float4 kk = *reinterpret_cast<const float4*>(krow + c);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 qq = *reinterpret_cast<const float4*>(qw + r * HD + c);
-        s[r] = fmaf(qq.x, kk.x, s[r]);
-        s[r] = fmaf(qq.y, kk.y, s[r]);
-        s[r] = fmaf(qq.z, kk.z, s[r]);
-        s[r] = fmaf(qq.w, kk.w, s[r]);
-      }
-    }
-
-    const int k_pos = k_start + lane;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const int q_pos = q_start + warp * ROWS + r;
-      const bool live = k_pos < Skv && q_pos < Sq && (!causal || q_pos >= k_pos);
-      const float sc = live ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sc));
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float p = isfinite(sc) ? expf(sc - m_safe) : 0.f;
-      const float corr = isfinite(m[r]) ? expf(m[r] - m_safe) : 0.f;
-      l[r] = l[r] * corr + warp_sum(p);
-      m[r] = m_new;
-      s[r] = p;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[r][c] *= corr;
-    }
-
-    // acc += p v: key j's probabilities come from lane j
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pj[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) pj[r] = __shfl_sync(FULL, s[r], j);
-      const float* vrow = vs + j * HD + lane;
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) {
-        const float vv = vrow[32 * c];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r][c] = fmaf(pj[r], vv, acc[r][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int q_pos = q_start + warp * ROWS + r;
-    if (q_pos >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-    T* orow = ob + size_t(q_pos) * q_row + lane;
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) store(orow + 32 * c, acc[r][c] / denom);
-  }
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-           int KV, int G, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<HD>();
-  auto kernel = flash_fwd_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         int(bytes));
-  if (err != cudaSuccess) return int(err);
-  const dim3 grid((Sq + BQ - 1) / BQ, KV * G, B);
-  kernel<<<grid, THREADS, bytes, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<T*>(o), Sq,
-                                           Skv, KV, G, scale, causal);
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-              int KV, int G, int hd, float scale, int causal, cudaStream_t stream) {
-  switch (hd) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, stream);
-    case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, stream);
-    default: return int(cudaErrorInvalidValue);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma + TMA
@@ -828,9 +689,290 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 }  // namespace wg
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 mma.sync
+// ---------------------------------------------------------------------------
+namespace f32 {
+
+using namespace tf32x3;
+
+constexpr int ROWS = 64;                  // q rows per tile, 16 a warp
+constexpr int TILE_WARPS = ROWS / 16;
+constexpr int SPLITS = 2;                 // warp groups of a block, on every other K/V tile
+constexpr int THREADS = 32 * TILE_WARPS * SPLITS;
+constexpr int GROUP_THREADS = 32 * TILE_WARPS;
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD == 256 ? 16 : 32;  // keys per K/V tile
+  static constexpr int NJ = BK / 8;               // n-tiles of S = k-steps of P V
+  static constexpr int NO = HD / 8;               // n-tiles of O
+  static constexpr int NB = NO < 8 ? NO : 8;      // O n-tiles per batch of products
+  static constexpr int RS = HD + 4;               // row stride of Q, K and V in shared memory
+  static constexpr int Q_FLOATS = ROWS * RS;
+  static constexpr int KV_FLOATS = BK * RS;       // one K or V tile
+  static constexpr int STAGE_FLOATS = SPLITS * 2 * KV_FLOATS;  // a K and a V tile a group
+  static constexpr int MERGE_FLOATS = (4 + 4 * NO) * GROUP_THREADS;  // a group's m, l, acc
+  static constexpr size_t SMEM = sizeof(float) * (size_t(Q_FLOATS) + 2 * size_t(STAGE_FLOATS));
+  static_assert(MERGE_FLOATS <= 2 * STAGE_FLOATS, "the merge reuses the K/V stages");
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+
+// acc[j] += a b[j], j < N, in error-compensated TF32: lo·hi and hi·lo over
+// all columns first, then hi·hi, so the tensor cores get independent
+// products back to back.
+template <int N>
+__device__ __forceinline__ void mma3(float (*acc)[4], const FragA& a, const FragB (&b)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(acc[j], a.lo, b[j].hi);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(acc[j], a.hi, b[j].lo);
+#pragma unroll
+  for (int j = 0; j < N; ++j) mma_tf32(acc[j], a.hi, b[j].hi);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ out, int B, int Sq, int Skv,
+               int KV, int G, int GP, int n_tiles, float scale, int causal) {
+  using C = Cfg<HD>;
+  constexpr int BK = C::BK, NJ = C::NJ, NO = C::NO, NB = C::NB, RS = C::RS;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                // (ROWS, RS): the block's q tile
+  float* kvs = qs + C::Q_FLOATS;   // 2 stages x SPLITS x (K tile, V tile), (BK, RS) each
+
+  // one q tile a block; blockIdx.x runs over (head group, batch, tile) with
+  // the tile slowest and the last (causal: the heaviest) first
+  const int HG = G / GP;           // head groups per kv head: 1 when packed
+  const int heads = KV * HG;
+  const int kv = blockIdx.x % heads / HG, hg = blockIdx.x % heads % HG;
+  const int b = blockIdx.x / heads % B;
+  const int t = n_tiles - 1 - blockIdx.x / heads / B;
+  const int PT = ROWS / GP;        // positions per q tile
+  const int p0 = t * PT;
+  const int n_kv = (Skv + BK - 1) / BK;
+  const int n_kt = causal ? min(n_kv, (min(p0 + PT, Sq) - 1) / BK + 1) : n_kv;
+  const int n_it = (n_kt + SPLITS - 1) / SPLITS;  // K/V tiles a group takes
+  const size_t q_row = size_t(KV) * G * HD;  // stride of one position in q / out
+  const size_t k_row = size_t(KV) * HD;      // stride of one position in k / v
+  const size_t q_off = size_t(b) * Sq * q_row + (size_t(kv) * G + size_t(hg) * GP) * HD;
+  const size_t k_off = size_t(b) * Skv * k_row + size_t(kv) * HD;
+  const float* qb = q + q_off;
+  const float* kb = k + k_off;
+  const float* vb = v + k_off;
+
+  // Q once, and in step it the K/V tiles it * SPLITS + g of the groups g
+  // into stage it % 2; rows past Sq / Skv and tiles past n_kt zero-filled
+  constexpr int C4 = HD / 4;  // 16-byte pieces of a row
+  for (int i = threadIdx.x; i < ROWS * C4; i += THREADS) {
+    const int r = i / C4, c4 = i % C4;
+    const int pos = p0 + r / GP;
+    const bool valid = pos < Sq;
+    cp_async16(qs + r * RS + 4 * c4,
+               valid ? qb + size_t(pos) * q_row + (r % GP) * HD + 4 * c4 : qb, valid);
+  }
+  auto stage = [&](int it) {
+    float* st = kvs + (it & 1) * C::STAGE_FLOATS;
+    for (int i = threadIdx.x; i < SPLITS * BK * C4; i += THREADS) {
+      const int g = i / (BK * C4), r = i / C4 % BK, c4 = i % C4;
+      const int kt = it * SPLITS + g, key = kt * BK + r;
+      const bool valid = kt < n_kt && key < Skv;
+      const size_t off = valid ? size_t(key) * k_row + 4 * c4 : 0;
+      float* ks = st + g * 2 * C::KV_FLOATS;
+      cp_async16(ks + r * RS + 4 * c4, kb + off, valid);
+      cp_async16(ks + C::KV_FLOATS + r * RS + 4 * c4, vb + off, valid);
+    }
+    cp_async_commit();
+  };
+  stage(0);  // with Q in the same group
+
+  // warp w of group g: rows r0 .. r0 + 15 of the tile, the K/V tiles kt
+  // with kt % SPLITS == g; this thread's rows r0 + gq and r0 + gq + 8
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;  // mma fragment row and column in the quad
+  const int grp = warp / TILE_WARPS;
+  const int r0 = (warp % TILE_WARPS) * 16;
+  const int first = p0 + r0 / GP, last = p0 + (r0 + 15) / GP;  // the warp's positions
+  const int qpos0 = p0 + (r0 + gq) / GP, qpos1 = p0 + (r0 + gq + 8) / GP;
+  int need = 0;  // K/V tiles the warp's rows need
+  if (first < Sq) need = causal ? min(n_kv, min(last, Sq - 1) / BK + 1) : n_kv;
+  const float* qw = qs + (r0 + gq) * RS + tq;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // step it is in shared memory; step it - 1 is consumed
+    if (it + 1 < n_it) stage(it + 1);
+    const int kt = it * SPLITS + grp;
+    if (kt >= need) continue;
+    const float* ks = kvs + (it & 1) * C::STAGE_FLOATS + grp * 2 * C::KV_FLOATS;
+    const float* vs = ks + C::KV_FLOATS;
+    // S = Q K^T, 16 rows x BK keys; k-steps alternate between two sums
+    float sc[NJ][4], sc2[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = sc2[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < HD; kk += 16) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k0 = kk + 8 * h;
+        FragA a;
+        a.set(qw[k0], qw[8 * RS + k0], qw[k0 + 4], qw[8 * RS + k0 + 4]);
+        FragB bf[NJ];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float* kr = ks + (8 * j + gq) * RS + k0 + tq;
+          bf[j].set(kr[0], kr[4]);
+        }
+        mma3<NJ>(h ? sc2 : sc, a, bf);
+      }
+    }
+
+    // scale, mask, online softmax; element (j, e): row gq + 8 * (e >> 1),
+    // key kt * BK + 8 * j + 2 * tq + (e & 1). Only a tile on the diagonal,
+    // past Skv or with rows past Sq needs the mask.
+    const bool masked =
+        (kt + 1) * BK > Skv || (causal && (kt + 1) * BK - 1 > first) || last >= Sq;
+    const int key0 = kt * BK + 2 * tq;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = (sc[j][e] + sc2[j][e]) * scale;
+        if (masked) {
+          const int kpos = key0 + 8 * j + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          if (!(kpos < Skv && qpos < Sq && (!causal || qpos >= kpos))) x = -INFINITY;
+        }
+        sc[j][e] = x;
+        if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+      }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {  // the 4 lanes of a row
+      mx0 = fmaxf(mx0, __shfl_xor_sync(FULL, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(FULL, mx1, o));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float ms0 = isfinite(mn0) ? mn0 : 0.f, ms1 = isfinite(mn1) ? mn1 : 0.f;
+    const float corr0 = isfinite(m0) ? expf(m0 - ms0) : 0.f;
+    const float corr1 = isfinite(m1) ? expf(m1 - ms1) : 0.f;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[j][e];
+        const float p = isfinite(x) ? expf(x - (e < 2 ? ms0 : ms1)) : 0.f;
+        sc[j][e] = p;
+        if (e < 2) sum0 += p; else sum1 += p;
+      }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      sum0 += __shfl_xor_sync(FULL, sum0, o);
+      sum1 += __shfl_xor_sync(FULL, sum1, o);
+    }
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= corr0;
+      acc[n][1] *= corr0;
+      acc[n][2] *= corr1;
+      acc[n][3] *= corr1;
+    }
+
+    // O += P V over the permuted k: A (j) = P's keys 8j + 2t, 8j + 2t + 1
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      FragA a;
+      a.set(sc[j][0], sc[j][2], sc[j][1], sc[j][3]);
+      const float* vr = vs + (8 * j + 2 * tq) * RS + gq;
+#pragma unroll
+      for (int n0 = 0; n0 < NO; n0 += NB) {
+        FragB bf[NB];
+#pragma unroll
+        for (int n = 0; n < NB; ++n) bf[n].set(vr[8 * (n0 + n)], vr[RS + 8 * (n0 + n)]);
+        mma3<NB>(acc + n0, a, bf);
+      }
+    }
+  }
+
+  // the groups hold the online softmax of the same rows over two halves of
+  // the keys: group 1 hands (m, l, acc) to group 0 through shared memory
+  // (the K/V stages, free now) and group 0 merges them and writes the rows
+  float* mg = kvs + threadIdx.x % GROUP_THREADS;  // value e at mg[e * GROUP_THREADS]
+  __syncthreads();
+  if (grp == 1) {
+    mg[0] = m0;
+    mg[GROUP_THREADS] = m1;
+    mg[2 * GROUP_THREADS] = l0;
+    mg[3 * GROUP_THREADS] = l1;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mg[(4 + 4 * n + e) * GROUP_THREADS] = acc[n][e];
+  }
+  __syncthreads();
+  if (grp == 0 && need > 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pos = h ? qpos1 : qpos0;
+      if (pos >= Sq) continue;
+      const float m_own = h ? m1 : m0, m_other = mg[h * GROUP_THREADS];
+      const float mn = fmaxf(m_own, m_other);
+      const float ms = isfinite(mn) ? mn : 0.f;
+      const float c_own = isfinite(m_own) ? expf(m_own - ms) : 0.f;
+      const float c_other = isfinite(m_other) ? expf(m_other - ms) : 0.f;
+      const float l = (h ? l1 : l0) * c_own + mg[(2 + h) * GROUP_THREADS] * c_other;
+      const float denom = fmaxf(l, 1e-30f);
+      float* orow = out + q_off + size_t(pos) * q_row + ((r0 + gq + 8 * h) % GP) * HD + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const float x = acc[n][2 * h] * c_own + mg[(4 + 4 * n + 2 * h) * GROUP_THREADS] * c_other;
+        const float y =
+            acc[n][2 * h + 1] * c_own + mg[(5 + 4 * n + 2 * h) * GROUP_THREADS] * c_other;
+        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(x / denom, y / denom);
+      }
+    }
+  }
+}
+
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int KV,
+           int G, float scale, int causal, cudaStream_t stream) {
+  using C = Cfg<HD>;
+  const int GP = ROWS % G == 0 ? G : 1;  // heads packed per 64-row tile
+  const int PT = ROWS / GP;
+  const int n_tiles = (Sq + PT - 1) / PT;
+  auto kernel = flash_fwd_tf32<HD>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(C::SMEM));
+  if (err != cudaSuccess) return int(err);
+  const unsigned blocks = unsigned(n_tiles) * unsigned(B) * unsigned(KV * (G / GP));
+  kernel<<<blocks, THREADS, C::SMEM, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), B, Sq, Skv, KV, G, GP, n_tiles, scale, causal);
+  return int(cudaGetLastError());
+}
+
+}  // namespace f32
+
 }  // namespace
 
-// dtype: 0 float32 (CUDA-core kernel), 1 bfloat16 (wgmma kernel). Returns
+// dtype: 0 float32 (3xTF32 mma.sync kernel), 1 bfloat16 (wgmma kernel). Returns
 // the CUDA status of the launch (0 on success, -1 where a TMA map could not
 // be encoded); the wrapper raises on anything else.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
@@ -838,8 +980,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       float scale, int causal, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || G <= 0) return int(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, B, Sq, Skv, KV, G, hd, scale, causal, st);
+  if (dtype == 0) {
+    switch (hd) {
+      case 32: return f32::launch<32>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
+      case 64: return f32::launch<64>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
+      case 128: return f32::launch<128>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
+      case 256: return f32::launch<256>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
   if (dtype != 1) return int(cudaErrorInvalidValue);
   switch (hd) {
     case 32: return wg::launch<32>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);

@@ -6,9 +6,14 @@ The kernel replaces the Pallas TPU kernel
 with an online softmax in float32, the causal mask aligned top-left, keys and
 queries past the sequence masked, output in q's dtype. It takes the model's
 layouts directly: q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd), float32 or
-bfloat16, head_dim in {32, 64, 128, 256}. bfloat16 runs the wgmma kernel
-(tensor cores, TMA-fed K/V, the G query heads of a kv head packed into one
-64-row tile where G divides 64); float32 the CUDA-core kernel.
+bfloat16, head_dim in {32, 64, 128, 256}. Both dtypes pack the G query heads
+of a kv head into one 64-row tile where G divides 64. bfloat16 runs the
+wgmma kernel (bf16 tensor cores, TMA-fed K/V), which pairs the q tiles t and
+last - t in a block. float32 runs the mma.sync kernel (both products in
+error-compensated TF32, three TF32 products per float32 product, K/V
+double-buffered by cp.async): one 64-row q tile a block, whose two warp
+groups take alternate K/V tiles and merge their online softmaxes at the end,
+with the blocks launched heaviest tile first.
 
 The source is compiled with ``nvcc`` for ``sm_90a`` at first use by
 ``kernels/build.py`` (a plain C launcher, loaded with ``ctypes``); nothing is
@@ -73,6 +78,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
             raise ValueError(f"flash_attention: {name} must be contiguous")
     if min(B, Sq, Skv, KV, G) == 0:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
+    # the kernels copy q/k/v rows in 16-byte pieces (cp.async, TMA); a view
+    # that starts mid-piece is copied to fresh (aligned) storage
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     if _lib is None:
         build()
     out = torch.empty_like(q)

@@ -10,12 +10,18 @@ CPU path of ``ops.crms_grid`` runs it and the tests hold the kernel to it.
 tiles, masks, online softmax and finalisation, in float32);
 ``attention_naive`` is the O(S²)-memory oracle.
 
+``tf32_rna`` and ``tf32_einsum`` repeat the kernels' TF32 rounding and
+error-compensated TF32 products (the float32 flash and SSD kernels), for the
+tests that emulate those kernels' arithmetic on the CPU.
+
 ``ssd_chunk_plain`` is the SSD chunk kernel's plain version (the body of the
 reference's Pallas kernel per (batch, chunk, head), batched);
 ``ssd_chunks_reference`` is the einsum oracle, a copy of the reference's
 ``models/mamba.py::_ssd_chunks_ref``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -34,6 +40,20 @@ def _logaddexp(x, y):
     delta = x - y
     out = torch.maximum(x, y) + torch.log1p(torch.exp(-torch.abs(delta)))
     return torch.where(torch.isnan(delta), x + y, out)
+
+
+def head_sum_steps(n) -> int:
+    """The k-steps of the Erlang head sum that the counts ``n`` need:
+    min(ceil(max n), MAX_N) - 1 over the counts that are not NaN (an
+    infinite count needs MAX_N - 1, a NaN one none). A step k changes a
+    lane only where n > k."""
+    counts = n[~torch.isnan(n)]
+    if counts.numel() == 0:
+        return 0
+    top = float(counts.max())
+    if not top > 1:
+        return 0
+    return (MAX_N if top >= MAX_N else math.ceil(top)) - 1
 
 
 def crms_grid_plain(kappa, lam, xbar, n, c, m, *, caps_cpu, power_span, alpha, beta,
@@ -60,11 +80,13 @@ def crms_grid_plain(kappa, lam, xbar, n, c, m, *, caps_cpu, power_span, alpha, b
     log_a = torch.log(a)
 
     # log Σ_{k=0}^{n-1} a^k/k! as a streaming logsumexp over k (running max,
-    # rescaled running sum, log k!); the k=0 term is log 1 = 0
+    # rescaled running sum, log k!); the k=0 term is log 1 = 0. Steps with
+    # k >= n leave both as they are, so the sum ends at the largest count
+    # (head_sum_steps), as the kernel ends it at its warp's largest
     run_max = torch.zeros_like(a)
     run_sum = torch.ones_like(a)
     log_fact = torch.zeros((), dtype=F32, device=a.device)
-    ks = torch.arange(1, MAX_N, dtype=F32, device=a.device)
+    ks = torch.arange(1, head_sum_steps(n) + 1, dtype=F32, device=a.device)
     for kf in ks:
         log_fact = log_fact + torch.log(kf)
         term = kf * log_a - log_fact
@@ -108,6 +130,30 @@ def crms_grid_utility(kappa, lam, xbar, n, c, m, caps_cpu, power_span, alpha, be
         crms_grid_terms(kappa, lam, xbar, n, c, m, caps_cpu, power_span, alpha, beta),
         dim=-1,
     )
+
+
+# ----------------------------------------------------------------------------
+# TF32 products of the flash (float32) and SSD kernels
+# ----------------------------------------------------------------------------
+def tf32_rna(a):
+    """The kernels' rounding of a float32 operand to TF32 (the value of
+    cvt.rna.tf32.f32): the magnitude rounded to 10 mantissa bits, ties away
+    from zero, on the float32 bits."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_einsum(eq, a, b, terms: int = 3):
+    """einsum ``eq`` of float32 operands as the kernels' products compute it
+    on the tensor cores: in error-compensated TF32, each operand split as hi
+    = tf32(x), lo = tf32(x - hi) and lo·hi + hi·lo + hi·hi summed in float32
+    (``terms=3``), or hi·hi alone (``terms=1``)."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    if terms == 1:
+        return torch.einsum(eq, a_hi, b_hi)
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
 
 
 # ----------------------------------------------------------------------------

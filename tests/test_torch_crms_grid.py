@@ -121,3 +121,62 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     arrays = [torch.as_tensor(a, dtype=torch.float32).contiguous() for a in _inputs(4, 8, 0)]
     with pytest.raises(ValueError, match="CUDA"):
         port_kernel.crms_grid_launch(*arrays, per_app=True, **KW)
+
+
+# --- the Erlang head sum ends at the largest count ---------------------------
+# The kernel ends its k-loop at its warp's largest count and the plain version
+# at the grid's largest (ref.head_sum_steps); a step k >= n changes no lane,
+# so both are bit for bit the fixed 127-step loop.
+def _full_loop(monkeypatch, arrays, reduce):
+    """The plain version with the head sum walking k = 1..127 whatever the
+    counts, as the kernel did before it ended early."""
+    with monkeypatch.context() as mp:
+        mp.setattr(ref, "head_sum_steps", lambda n: ref.MAX_N - 1)
+        return ref.crms_grid_plain(*arrays, reduce=reduce, **KW)
+
+
+def _bits(t):
+    """float32 bits, so that NaN lanes compare equal to NaN lanes."""
+    return t.contiguous().view(torch.int32)
+
+
+def _edge_lanes(M=9, B=24, seed=3):
+    """Grid inputs with edge lanes: a NaN count, a non-integer count, counts
+    of 127, 128 and 200 and an infinite one, each among counts of 3..11 in
+    its row; log a of +inf (x̄ = inf), -inf (λ = 0) and NaN (κ₁ = NaN)."""
+    kappa, lam, xbar, n, c, m = (torch.as_tensor(a, dtype=torch.float32)
+                                 for a in _inputs(M, B, seed))
+    n[0, 0], n[1, 1], n[2, 2] = float("nan"), 5.5, 127.0
+    n[3, 3], n[4, 4], n[5, 5] = 128.0, 200.0, float("inf")
+    n[6, 0] = 200.0  # one large count among small ones in a row
+    xbar[6], lam[7], kappa[8, 0] = float("inf"), 0.0, float("nan")
+    return kappa, lam, xbar, n, c, m
+
+
+@pytest.mark.parametrize("reduce", ["per_app", "sum"])
+@pytest.mark.parametrize("case", ["grid", "edges", "small_counts"])
+def test_head_sum_ends_at_the_largest_count_bit_for_bit(monkeypatch, case, reduce):
+    if case == "grid":
+        arrays = tuple(torch.as_tensor(a, dtype=torch.float32) for a in _inputs(64, 72, 11))
+    else:
+        arrays = _edge_lanes()
+        if case == "small_counts":  # the grid's largest count is 11: 10 steps
+            n = arrays[3].clone()
+            n[~torch.isfinite(n) | (n > 11)] = 11.0
+            arrays = (*arrays[:3], n, *arrays[4:])
+    early = ref.crms_grid_plain(*arrays, reduce=reduce, **KW)
+    full = _full_loop(monkeypatch, arrays, reduce)
+    assert torch.equal(_bits(early), _bits(full))
+    if case == "edges" and reduce == "per_app":  # both kinds of lane are compared
+        assert bool(torch.isnan(early[0, 0])) and bool(torch.isfinite(early).any())
+
+
+def test_head_sum_steps():
+    t = lambda *v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
+    assert ref.head_sum_steps(t(3, 11, 7)) == 10
+    assert ref.head_sum_steps(t(5.5, 2)) == 5
+    assert ref.head_sum_steps(t(127)) == 126
+    assert ref.head_sum_steps(t(128, 3)) == ref.head_sum_steps(t(200)) == 127
+    assert ref.head_sum_steps(t(float("inf"), 3)) == 127
+    assert ref.head_sum_steps(t(float("nan"), 4)) == 3
+    assert ref.head_sum_steps(t(float("nan"))) == ref.head_sum_steps(t(1, 0.5)) == 0

@@ -5,8 +5,12 @@ on numpy-seeded inputs. Tolerances are the reference's own
 (``tests/test_kernels.py``): 2e-5 in float32, 3e-2 in bfloat16. The CUDA
 kernel itself is held to this plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``); the arithmetic of its bf16
-route (P split into two bf16 terms before P·V) is checked here against that
-plain version and the Pallas kernel."""
+route (P split into two bf16 terms before P·V) and of its float32 route (both
+products in three TF32 products each) is checked here against that plain
+version (and the bf16 route against the Pallas kernel)."""
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -157,3 +161,69 @@ def test_split_p_bf16_meets_the_card_check(B, Sq, KV, G, hd):
     pallas = np.asarray(ref_ops.flash_attention(jq, jk, jv, causal=True, backend="interpret"),
                         np.float32)
     np.testing.assert_allclose(split, pallas, atol=3e-2, rtol=3e-2)
+
+
+# --- the float32 CUDA kernel's arithmetic, emulated on the CPU ---------------
+# csrc/flash_attention.cu runs both float32 products (S = Q Kᵀ and P V) on the
+# tensor cores in TF32: each float32 operand x split as hi = tf32(x), lo =
+# tf32(x - hi) (ref.tf32_rna), and lo·hi + hi·lo + hi·hi summed in float32;
+# the softmax stays in float32. The shapes are chip_smoke.py's float32 ones.
+F32_SHAPES = [(4, 512, 512, 1, 8, 256, True), (1, 256, 256, 4, 1, 128, True),
+              (1, 70, 130, 2, 2, 32, False), (2, 192, 192, 2, 3, 64, True)]
+
+
+def _flash_tf32(q, k, v, causal: bool, terms: int):
+    """Attention with both products on TF32 operands (``terms`` products
+    each, ref.tf32_einsum), the masks, guards and finalisation of the plain
+    version, in q's (B, Sq, KV, G, hd) layout."""
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    s = ref.tf32_einsum("bqkgh,btkh->bkgqt", q, k, terms) * hd**-0.5
+    k_pos = torch.arange(Skv)[None, :]
+    if causal:
+        s = torch.where(torch.arange(Sq)[:, None] >= k_pos, s, -torch.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(torch.isfinite(s), torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)),
+                    0.0)
+    out = ref.tf32_einsum("bkgqt,btkh->bkgqh", p, v, terms)
+    out = out / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,KV,G,hd,causal", F32_SHAPES)
+def test_three_tf32_products_meet_the_f32_card_check(B, Sq, Skv, KV, G, hd, causal):
+    """Three TF32 products per float32 product keep the float32 kernel within
+    the card check's atol = rtol = 2e-5 of the plain version (chip_smoke.py's
+    inputs); one TF32 product misses it."""
+    rng = np.random.default_rng(0 + B * Sq + hd)  # chip_smoke.check_flash's seed
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               for shape in ((B, Sq, KV, G, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    want = ref.flash_attention_plain(q, k, v, causal).numpy()
+    np.testing.assert_allclose(_flash_tf32(q, k, v, causal, terms=3).numpy(), want,
+                               atol=2e-5, rtol=2e-5)
+    one = _flash_tf32(q, k, v, causal, terms=1).numpy()
+    assert not np.allclose(one, want, atol=2e-5, rtol=2e-5), \
+        "one TF32 product was expected to miss the bar"
+
+
+def test_flash_f32_bound_counts_the_least_work_at_the_serving_shape():
+    """chip_smoke.flash_bound_ms in float32 at (4, 512, 512, 1, 8, 256)
+    causal: the products at a third of the TF32 tensor rate plus the
+    softmax's five operations a score at the float32 rate, against the
+    bytes; bf16 keeps its tensor-core count."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    B, S, KV, G, hd = 4, 512, 1, 8, 256
+    products = 4 * B * KV * G * S * S * hd // 2
+    softmax = 5 * B * KV * G * S * S // 2
+    assert products == 4_294_967_296 and softmax == 20_971_520
+    ms, bound_by = smoke.flash_bound_ms(B, S, S, KV, G, hd, True, torch.float32)
+    assert bound_by == "operations"
+    assert ms == pytest.approx(1e3 * (products / (495e12 / 3) + softmax / 67e12), rel=1e-12)
+    assert ms == pytest.approx(0.02634, abs=5e-5)
+    t_bytes = 1e3 * 4 * (2 * B * S * KV * G * hd + 2 * B * S * KV * hd) / 3.35e12
+    assert t_bytes == pytest.approx(0.01127, abs=5e-5) and t_bytes < ms
+    bf16, by = smoke.flash_bound_ms(B, S, S, KV, G, hd, True, torch.bfloat16)
+    assert by == "bytes" and bf16 == pytest.approx(t_bytes / 2, rel=1e-12)

@@ -57,12 +57,19 @@ def _rho(kappa, lam, xbar, n, c, m):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("reduce,M,B,n_range", [
-    ("per_app", 64, 72, (3, 12)), ("sum", 64, 2000, (8, 20)),
-    ("per_app", 7, 40, (3, 12)), ("sum", 4, 200, (3, 12)),
+@pytest.mark.parametrize("reduce,M,B,n_range,mixed", [
+    ("per_app", 64, 72, (3, 12), False), ("sum", 64, 2000, (8, 20), False),
+    ("per_app", 7, 40, (3, 12), False), ("sum", 4, 200, (3, 12), False),
+    # warps whose lanes need 2..127 steps of the Erlang head sum: counts of
+    # 127, 200 and inf among 3..11, and a NaN count
+    ("per_app", 64, 72, (3, 12), True),
 ])
-def test_cuda_kernel_matches_plain(cuda_device, reduce, M, B, n_range):
+def test_cuda_kernel_matches_plain(cuda_device, reduce, M, B, n_range, mixed):
     arrays = _inputs(M, B, 5, n_range)
+    if mixed:
+        n = arrays[3]
+        n[0, 5], n[1, 40], n[2, 63], n[3, 0] = 127.0, 200.0, np.inf, np.nan
+        n[4, 1:33] = 127.0  # a whole warp of long lanes beside short ones
     before = port_kernel.launches
     out = ops.crms_grid(*(torch.as_tensor(a, device=cuda_device) for a in arrays),
                         reduce=reduce, **KW)
@@ -74,6 +81,9 @@ def test_cuda_kernel_matches_plain(cuda_device, reduce, M, B, n_range):
                                 reduce=reduce, **KW).cpu().numpy()
     out = out.cpu().numpy()
     rho = _rho(*arrays) if reduce == "per_app" else np.max(_rho(*arrays), axis=1)
+    assert np.array_equal(np.isnan(out), np.isnan(plain))  # the NaN and inf counts
+    assert np.isnan(plain).any() == mixed
+    out, plain, rho = (a[~np.isnan(plain)] for a in (out, plain, rho))
     stable = plain < 1e8
     assert stable.any() and not stable.all()  # both kinds of lane are checked
     tight = stable & (rho <= 0.99)
@@ -102,6 +112,13 @@ def test_main_path_launches_the_kernel(cuda_device):
     (1, 64, 64, 1, 8, 32, True, torch.bfloat16), (2, 128, 128, 2, 4, 64, True, torch.bfloat16),
     (2, 192, 192, 2, 3, 64, True, torch.bfloat16), (1, 200, 333, 1, 8, 128, False, torch.bfloat16),
     (1, 17, 17, 1, 8, 256, True, torch.bfloat16),
+    # the float32 mma.sync kernel: G 8 packed at hd 32, 64 and 128; one head
+    # a tile (G 3) at hd 256; ragged Sq != Skv (causal with Skv < Sq); a tile
+    # mostly past Sq; one live position, the tile's other rows fully masked
+    (1, 64, 64, 1, 8, 32, True, torch.float32), (2, 128, 128, 1, 8, 64, True, torch.float32),
+    (1, 96, 96, 2, 8, 128, True, torch.float32), (1, 130, 130, 1, 3, 256, True, torch.float32),
+    (1, 200, 333, 1, 8, 128, False, torch.float32), (1, 100, 37, 2, 4, 32, True, torch.float32),
+    (1, 17, 17, 1, 8, 256, True, torch.float32), (1, 1, 40, 1, 8, 64, True, torch.float32),
 ])
 def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, KV, G, hd, causal, dtype):
     rng = np.random.default_rng(B * Sq + hd)
@@ -121,6 +138,23 @@ def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, KV, G, hd, causal, 
         # both round float32 results to bf16: within one ulp, and rarely apart
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=2.0 ** -7)
         assert np.mean(got != want) < 0.01
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_views_that_start_off_16_bytes(cuda_device, dtype):
+    """q, k and v as contiguous views one element into their storage: the
+    wrapper copies them to aligned storage for the kernels' 16-byte copies."""
+    B, S, KV, G, hd = 1, 96, 1, 8, 64
+    rng = np.random.default_rng(10)
+    q, k, v = (torch.as_tensor(rng.standard_normal(1 + int(np.prod(shape))),
+                               dtype=torch.float32).to(cuda_device, dtype)[1:].view(shape)
+               for shape in ((B, S, KV, G, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    assert all(t.is_contiguous() and t.data_ptr() % 16 for t in (q, k, v))
+    got = ops.flash_attention(q, k, v, causal=True).float().cpu().numpy()
+    want = ref.flash_attention_plain(q, k, v, True).float().cpu().numpy()
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu

@@ -34,7 +34,7 @@ def test_no_jax_or_reference_imports(path):
 
 
 PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
-    (ROOT / "src" / "repro_torch").rglob("*.cu"))
+    p for p in (ROOT / "src" / "repro_torch").rglob("*.cu*") if p.suffix in (".cu", ".cuh"))
 # What the port may not call: torch's fused attention entry points (also when
 # reached by name through getattr) and the attention packages. torch.matmul
 # stays allowed: the model's projections are plain GEMMs, not attention.
@@ -104,6 +104,24 @@ def test_library_call_checks_see_calls_not_prose(tmp_path):
         assert check[pathlib.Path(name).suffix](tmp_path / name), name
     for name in prose:
         assert not check[pathlib.Path(name).suffix](tmp_path / name), name
+
+
+def test_kernel_libraries_are_named_by_their_headers_too(tmp_path):
+    """Every local header a kernel source includes lies beside it as a .cuh
+    file, and the library's hash changes when such a header does, so an
+    edited header never loads a stale library."""
+    from repro_torch.kernels.build import CSRC, source_digest
+
+    for source in sorted(CSRC.glob("*.cu")):
+        for name in re.findall(r'^\s*#\s*include\s*"([^"]+)"', source.read_text(), re.M):
+            assert (CSRC / name).suffix == ".cuh" and (CSRC / name).parent == CSRC, (source, name)
+            assert (CSRC / name).exists(), (source, name)
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    before = source_digest(tmp_path / "k.cu")
+    assert source_digest(tmp_path / "k.cu") == before
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert source_digest(tmp_path / "k.cu") != before
 
 
 def test_importing_the_port_leaves_jax_unloaded():

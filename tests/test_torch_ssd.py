@@ -160,24 +160,6 @@ GPU_SHAPES = [(4, 512, 24, 64, 128, 256), (1, 128, 2, 32, 16, 64), (2, 256, 4, 6
               (2, 512, 25, 64, 128, 256), (2, 16, 3, 16, 16, 1), (2, 256, 4, 16, 128, 64)]
 
 
-def _tf32(a):
-    """cvt.rna.tf32.f32 on float32 bits: the magnitude rounded to 10 mantissa
-    bits, ties away from zero."""
-    bits = a.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _products(eq, a, b, terms):
-    """einsum ``eq`` of float32 operands on TF32: three products (lo·hi,
-    hi·lo, hi·hi, summed in that order) or one (hi·hi)."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    if terms == 1:
-        return torch.einsum(eq, a_hi, b_hi)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
-            + torch.einsum(eq, a_hi, b_hi))
-
-
 def _ssd_chunk_tf32(x, bmat, cmat, da, chunk, terms):
     """The kernel's function with its products on TF32 operands: the scores
     once per (batch, chunk), the decay and mask in float32 as the plain
@@ -191,11 +173,11 @@ def _ssd_chunk_tf32(x, bmat, cmat, da, chunk, terms):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q_i, Q_j, H)
     pos = torch.arange(Q)
     tri = (pos[:, None] >= pos[None, :])[:, :, None]
-    scores = _products("bnis,bnjs->bnij", cc, bc, terms)
+    scores = ref.tf32_einsum("bnis,bnjs->bnij", cc, bc, terms)
     pm = torch.where(tri, scores[..., None] * torch.exp(seg), 0.0)
-    y = _products("bnijh,bnjhp->bnihp", pm, xc, terms)
+    y = ref.tf32_einsum("bnijh,bnjhp->bnihp", pm, xc, terms)
     xw = xc * torch.exp(cum[:, :, -1:, :] - cum)[..., None]
-    states = _products("bnthp,bnts->bnhps", xw, bc, terms)
+    states = ref.tf32_einsum("bnthp,bnts->bnhps", xw, bc, terms)
     return y.reshape(B, S, H, P), states
 
 
@@ -218,14 +200,14 @@ def test_three_tf32_products_meet_the_card_check(B, S, H, P, N, chunk):
 
 
 def test_tf32_rounding_is_round_to_nearest_ties_away():
-    """_tf32 keeps 10 mantissa bits: exact on values that have no more,
-    ties away from zero, and at most half a TF32 ulp off elsewhere."""
+    """ref.tf32_rna keeps 10 mantissa bits: exact on values that have no
+    more, ties away from zero, and at most half a TF32 ulp off elsewhere."""
     exact = torch.tensor([1.0, -1.5, 1.0 + 2.0 ** -10, 3.0 * 2.0 ** -20], dtype=torch.float32)
-    assert torch.equal(_tf32(exact), exact)
+    assert torch.equal(ref.tf32_rna(exact), exact)
     tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)], dtype=torch.float32)
-    assert _tf32(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    assert ref.tf32_rna(tie).tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
     a = torch.as_tensor(np.random.default_rng(7).standard_normal(10000), dtype=torch.float32)
-    assert float(((_tf32(a) - a).abs() / a.abs()).max()) <= 2.0 ** -11
+    assert float(((ref.tf32_rna(a) - a).abs() / a.abs()).max()) <= 2.0 ** -11
 
 
 def _chip_smoke():
