@@ -48,8 +48,17 @@ is non-zero:
                graph, replayed between CUDA events; where a launch's device
                work is shorter than the host's cost per call, ms measures
                the host and graph_ms the card); the lower bound from the
-               shapes. The kernels line holds the f32 route's numbers under
-               the flash entry's "float32".
+               shapes. The new paths' shapes (B, Sq, Skv, KV, G, hd) in bf16
+               and f32 under the same bars: moonshot-v1-16b-a3b's prefill (4,
+               512, 512, 16, 1, 128) causal, and seamless-m4t-large-v2's
+               encoder (4, 128, 128, 16, 1, 64), decoder self-attention (4,
+               512, 512, 16, 1, 64) causal, cross-attention prefill (4, 512,
+               128, 16, 1, 64) and cross-attention decode (4, 1, 128, 16, 1,
+               64), all but the self-attention not causal; bf16 timed as the
+               path's shape. The kernels line holds the f32 route's numbers
+               under the flash entry's "float32", moonshot's shape under
+               "moonshot" and seamless's under "seamless", each with the
+               launches of its path.
   7. ssd     — the SSD chunk kernel (C Bᵀ once per head group, products in
                3xTF32 mma.sync) against its plain version on numpy-seeded
                inputs: the serving path's shape (B 4, S 512,
@@ -64,12 +73,14 @@ is non-zero:
                kernel's graph_ms and the lower bound from the shapes.
   8. serve   — the port's Engine on the card (float32, attn_backend "auto")
                for reduced gemma-2b (hd 32 and 256), minitron-4b,
-               codeqwen1.5-7b and mamba2-130m against the JAX Engine's results
-               in tests/data/torch_serve_golden.json: tokens equal up to the
+               codeqwen1.5-7b, mamba2-130m, moonshot-v1-16b-a3b,
+               llama4-scout-17b-a16e and jamba-1.5-large-398b (flash, SSD and
+               MoE in one model) against the JAX Engine's results in
+               tests/data/torch_serve_golden.json: tokens equal up to the
                first position where the reference's top-1/top-2 margin is
                <= 1e-3, prefill logits within 1e-4 relative to max |logit|,
-               one flash launch per self-attention layer and one ssd launch
-               per Mamba layer per prefill.
+               one flash launch per self- and cross-attention layer and one
+               ssd launch per Mamba layer per prefill.
   9. gemma   — gemma-2b at full width and depth (random bf16 weights from a
                seeded generator, bf16 compute): 8 requests of 512 tokens,
                32 new tokens each, 4 slots (two prefills). 18 kernel launches
@@ -81,11 +92,33 @@ is non-zero:
                launches per prefill (48 in the run), the reference's realized
                parameter count, prefill logits through the kernel within 3e-2
                of the plain version's, the same timings.
+ 11. moe     — moonshot-v1-16b-a3b at full width and depth (28.06e9 random
+               bf16 weights, the router float32, from a seeded generator on
+               the card; gemma-2b and mamba2-130m freed first): one group of 4
+               requests of 512 tokens, 16 new tokens each, 4 slots, a
+               576-token cache; 48 flash launches; prefill logits through the
+               kernel within 3e-2 of the plain version's with the routing
+               held equal (the plain route takes the kernel route's expert
+               ids), their top-1 agreement; the two routes free: their logits'
+               distance, top-1 agreement and the share of (layer, token, slot)
+               expert ids that differ (a one-ulp difference before a router
+               flips near-ties, and each flip changes every later layer's
+               input); prefill and decode-step times, tokens/s, peak memory,
+               init and phase wall time.
+ 12. audio   — seamless-m4t-large-v2 at full width and depth through the
+               serving steps: frames (4, 128, 1024) from the seed, the
+               encoder's memory computed once (24 flash launches); the prefill
+               of 4 x 512 tokens from frames (24 + 24 + 24 launches) equal bit
+               for bit to the prefill from the memory (24 + 24); kernel
+               against plain within 3e-2; the prompt replayed through decode
+               steps, then 16 greedy steps, with the memory (24 cross-attention
+               launches a step); the same timings.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
 the script prints no result and exits non-zero.
 """
+import gc
 import json
 import re
 import subprocess
@@ -130,6 +163,21 @@ SOFTMAX_OPS = 5
 FULL_ARCH = "gemma-2b"
 SSM_ARCH = "mamba2-130m"
 N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN = 8, 512, 32, 4, 576
+# moonshot-v1-16b-a3b (phase 11) and seamless-m4t-large-v2 (phase 12) at full
+# width: one group of SLOTS requests, MOE_NEW / AUDIO_NEW new tokens each, and
+# seamless's AUDIO_FRAMES encoder frames (PROMPT_LEN // enc_frames_ratio)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+AUDIO_ARCH = "seamless-m4t-large-v2"
+MOE_NEW = AUDIO_NEW = 16
+AUDIO_FRAMES = 128
+# flash shapes (B, Sq, Skv, KV, G, hd, causal) of those paths
+MOE_FLASH = (SLOTS, PROMPT_LEN, PROMPT_LEN, 16, 1, 128, True)
+AUDIO_FLASH = {
+    "encoder": (SLOTS, AUDIO_FRAMES, AUDIO_FRAMES, 16, 1, 64, False),
+    "self": (SLOTS, PROMPT_LEN, PROMPT_LEN, 16, 1, 64, True),
+    "cross": (SLOTS, PROMPT_LEN, AUDIO_FRAMES, 16, 1, 64, False),
+    "cross_decode": (SLOTS, 1, AUDIO_FRAMES, 16, 1, 64, False),
+}
 
 
 def log(phase, **fields):
@@ -502,20 +550,28 @@ def check_ssd(B, S, H, P, N, chunk, timed=False):
 
 
 def block_counts(cfg):
-    """(self-attention layers, Mamba layers) of a config."""
-    count = {"self_attn": 0, "mamba": 0}
+    """{block kind: layers} of a config's decoder stages."""
+    count = {"self_attn": 0, "cross_attn": 0, "mlp": 0, "moe": 0, "mamba": 0}
     for stage in cfg.stages():
         for kind, _ in stage.blocks:
-            if kind in count:
-                count[kind] += stage.repeat
-    return count["self_attn"], count["mamba"]
+            count[kind] += stage.repeat
+    return count
+
+
+def prefill_launches(cfg, frames=False):
+    """(flash, ssd) launches of one prefill: one flash launch per self- and
+    cross-attention layer, and per encoder layer when ``frames`` are given;
+    one ssd launch per Mamba layer."""
+    count = block_counts(cfg)
+    flash = count["self_attn"] + count["cross_attn"] + (cfg.enc_layers if frames else 0)
+    return flash, count["mamba"]
 
 
 def realized_params(cfg):
     """The reference's realized parameter count: total_params() leaves out
     each Mamba block's conv_b (Ch) and dt_bias (nh) (configs/base.py
     _mamba_params; the reference's own test accepts that at rel 0.02)."""
-    _, n_mamba = block_counts(cfg)
+    n_mamba = block_counts(cfg)["mamba"]
     if not n_mamba:
         return cfg.total_params()
     m = cfg.mamba
@@ -545,7 +601,7 @@ def serve_reduced(name, entry, setup):
     torch.cuda.synchronize()
     launches = flash_attention.launches - before[0], ssd.launches - before[1]
     groups = -(-len(prompts) // setup["slots"])
-    want = tuple(n * groups for n in block_counts(cfg))
+    want = tuple(n * groups for n in prefill_launches(cfg))
     if launches != want:
         raise AssertionError(f"{name}: (flash, ssd) launches {launches} != {want}: one per "
                              f"attention / Mamba layer x {groups} prefills")
@@ -566,26 +622,28 @@ def serve_reduced(name, entry, setup):
     err = float(np.max(np.abs(logits - want)) / np.max(np.abs(want)))
     if not err < 1e-4:
         raise AssertionError(f"{name}: prefill logits off the reference by {err} (> 1e-4)")
-    log("serve", case=name, hd=cfg.resolved_head_dim, layers=cfg.n_layers,
+    log("serve", case=name, family=cfg.family, hd=cfg.resolved_head_dim, layers=cfg.n_layers,
         flash_launches=launches[0], ssd_launches=launches[1], tokens_equal=compared,
         tokens=sum(map(len, tokens)), logits_rel_err=err)
     return launches
 
 
-def serve_full(arch, kernel, kernel_times, phase):
-    """``arch`` at full width on the card; returns the launches of
-    ``kernel`` (the flash_attention or ssd module, one launch per layer per
-    prefill) in the Engine's run (the serving path, counted from zero).
-    ``kernel_times`` holds the kernel's ``ms`` and ``graph_ms`` at the
-    path's shape, from which its share of a prefill is reported."""
-    from repro_torch.configs import get_config
-    from repro_torch.models.layers import Runtime
-    from repro_torch.models.model import init_cache, init_params
-    from repro_torch.serve.engine import Engine, Request
-    from repro_torch.serve.step import make_decode_step, make_prefill_step
+def free_card():
+    """Hands the memory of earlier phases' models (out of scope once their
+    phase returns) back from the allocator's pool; returns the bytes still
+    allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
 
-    n_req, prompt_len, max_new, slots, max_len = N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN
-    kname = kernel.__name__.rsplit(".", 1)[1]
+
+def init_full(arch):
+    """``arch`` at full width with random bf16 weights from a seeded
+    generator on the card; returns (cfg, lm, init seconds), the realized
+    parameter count checked against the config's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+
     cfg = get_config(arch)
     t0 = time.perf_counter()
     lm = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), torch.bfloat16,
@@ -595,6 +653,34 @@ def serve_full(arch, kernel, kernel_times, phase):
     n_params = sum(p.numel() for p in lm.parameters())
     if n_params != realized_params(cfg):
         raise AssertionError(f"{arch}: {n_params} parameters != {realized_params(cfg)}")
+    return cfg, lm, init_s
+
+
+def kernel_vs_plain(arch, got, want):
+    """Last-position prefill logits through the kernels (``got``) against
+    the plain versions' (``want``): (error relative to max |logit|, top-1
+    agreement). Fails on a non-finite logit."""
+    got, want = got.float(), want.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError(f"{arch}: non-finite prefill logits")
+    err = float((got - want).abs().max() / want.abs().max())
+    return err, float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+
+def serve_full(arch, kernel, kernel_times, phase):
+    """``arch`` at full width on the card; returns the launches of
+    ``kernel`` (the flash_attention or ssd module, one launch per layer per
+    prefill) in the Engine's run (the serving path, counted from zero).
+    ``kernel_times`` holds the kernel's ``ms`` and ``graph_ms`` at the
+    path's shape, from which its share of a prefill is reported."""
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import init_cache
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    n_req, prompt_len, max_new, slots, max_len = N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN
+    kname = kernel.__name__.rsplit(".", 1)[1]
+    cfg, lm, init_s = init_full(arch)
     rt = Runtime("cuda", torch.bfloat16, "auto")
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (n_req, prompt_len),
                                                    dtype=np.int32)
@@ -621,21 +707,17 @@ def serve_full(arch, kernel, kernel_times, phase):
     # prefill through the kernel against the plain version, same weights
     batch = {"tokens": torch.as_tensor(prompts[:slots], device="cuda")}
     prefill = make_prefill_step(cfg, rt)
-    got = prefill(lm, batch).float()
-    want = make_prefill_step(cfg, Runtime("cuda", torch.bfloat16, "reference"))(lm, batch).float()
-    if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
-        raise AssertionError(f"{arch}: non-finite prefill logits")
-    err = float((got - want).abs().max() / want.abs().max())
+    err, top1 = kernel_vs_plain(arch, prefill(lm, batch), make_prefill_step(
+        cfg, Runtime("cuda", torch.bfloat16, "reference"))(lm, batch))
     if not err < 3e-2:
         raise AssertionError(f"{arch}: kernel prefill logits off the plain version's by {err}")
-    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
 
     prefill_ms = cuda_ms(lambda: prefill(lm, batch), 3, warmup=1)
     decode = make_decode_step(cfg, rt)
     caches = init_cache(cfg, rt, slots, max_len, dtype=torch.bfloat16)
     step = {"tokens": torch.as_tensor(prompts[:slots, :1], device="cuda"), "index": prompt_len}
     decode_ms = cuda_ms(lambda: decode(lm, step, caches), 20, warmup=2)
-    log(phase, params=n_params, init_s=init_s, requests=n_req, prompt_len=prompt_len,
+    log(phase, params=realized_params(cfg), init_s=init_s, requests=n_req, prompt_len=prompt_len,
         max_new=max_new, slots=slots, prefills=groups, engine_wall_s=wall,
         generated_tokens_per_s=n_req * max_new / wall, prefill_ms=prefill_ms,
         decode_step_ms=decode_ms, **{f"{kname}_launches": launches,
@@ -646,6 +728,188 @@ def serve_full(arch, kernel, kernel_times, phase):
         max_memory_allocated_gb=peak / 1e9, logits_rel_err_vs_plain=err,
         top1_agreement_vs_plain=top1)
     return launches
+
+
+def serve_moe_full():
+    """moonshot-v1-16b-a3b at full width and depth on the card through the
+    Engine: one group of SLOTS requests (the run's wall time is its decode
+    steps, each of which multiplies all 64 experts' weights). Returns the
+    flash launches of the Engine's run, counted from zero."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import init_cache
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    held_gb = free_card() / 1e9
+    cfg, lm, init_s = init_full(MOE_ARCH)
+    if not all(b.moe.router.dtype == torch.float32 for layer in lm.layers for b in layer
+               if b.kind == "moe"):
+        raise AssertionError(f"{MOE_ARCH}: a router is not float32")
+    rt = Runtime("cuda", torch.bfloat16, "auto")
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (SLOTS, PROMPT_LEN),
+                                                   dtype=np.int32)
+    eng = Engine(cfg, lm, rt, slots=SLOTS, max_len=MAX_LEN)
+    for rid in range(SLOTS):
+        eng.submit(Request(rid=rid, prompt=prompts[rid], max_new=MOE_NEW))
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    want_launches = prefill_launches(cfg)[0]
+    if launches != want_launches:
+        raise AssertionError(f"{MOE_ARCH}: {launches} flash launches != {want_launches}")
+    if sorted(r.rid for r in done) != list(range(SLOTS)):
+        raise AssertionError(f"{MOE_ARCH}: not every request finished")
+    for r in done:
+        if len(r.out) != MOE_NEW or not all(0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError(f"{MOE_ARCH}: request {r.rid} gave {r.out}")
+
+    # prefill through the kernel against the plain version, same weights. A
+    # one-ulp difference before a router can change a top-6 choice (bf16
+    # router logits) and with it every later layer's input, so the routes are
+    # held against each other twice: each free, with the share of (layer,
+    # token, slot) expert ids that differ, and with the plain version taking
+    # the kernel route's expert ids (the comparison the 3e-2 bar gates)
+    batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
+    prefill = make_prefill_step(cfg, rt)
+    plain = make_prefill_step(cfg, Runtime("cuda", torch.bfloat16, "reference"))
+    with moe.recording_routes() as ids_kernel:
+        got = prefill(lm, batch)
+    with moe.recording_routes() as ids_plain:
+        want_free = plain(lm, batch)
+    with moe.replaying_routes(ids_kernel):
+        want = plain(lm, batch)
+    err, top1 = kernel_vs_plain(MOE_ARCH, got, want)
+    free_err, free_top1 = kernel_vs_plain(MOE_ARCH, got, want_free)
+    flipped = torch.stack(ids_kernel) != torch.stack(ids_plain)  # (L, B, S, k)
+    per_layer = flipped.flatten(1).float().mean(dim=1)
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    C = moe._capacity(SLOTS * PROMPT_LEN, k, E, cfg.moe_cf)
+    dropped = float(torch.stack([moe._dispatch_positions(ids.reshape(-1), E) >= C
+                                 for ids in ids_kernel]).float().mean())
+    routes = dict(free_logits_rel_err_vs_plain=free_err, free_top1_agreement_vs_plain=free_top1,
+                  expert_id_flip_share=float(flipped.float().mean()),
+                  expert_id_flip_share_first_last_layer=(float(per_layer[0]),
+                                                         float(per_layer[-1])),
+                  capacity=C, dropped_slot_share=dropped)
+    if not err < 3e-2:
+        raise AssertionError(f"{MOE_ARCH}: kernel prefill logits off the plain version's by "
+                             f"{err} with the routing held equal (top-1 agreement {top1}, "
+                             f"{routes})")
+
+    prefill_ms = cuda_ms(lambda: prefill(lm, batch), 3, warmup=1)
+    decode = make_decode_step(cfg, rt)
+    caches = init_cache(cfg, rt, SLOTS, MAX_LEN, dtype=torch.bfloat16)
+    step = {"tokens": batch["tokens"][:, :1], "index": PROMPT_LEN}
+    decode_ms = cuda_ms(lambda: decode(lm, step, caches), 10, warmup=2)
+    log("moe", arch=MOE_ARCH, params=cfg.total_params(), init_s=init_s,
+        held_before_gb=held_gb, requests=SLOTS, prompt_len=PROMPT_LEN, max_new=MOE_NEW,
+        slots=SLOTS, engine_wall_s=wall, generated_tokens_per_s=SLOTS * MOE_NEW / wall,
+        prefill_ms=prefill_ms, decode_step_ms=decode_ms, flash_attention_launches=launches,
+        max_memory_allocated_gb=peak / 1e9, logits_rel_err_vs_plain=err,
+        top1_agreement_vs_plain=top1, **routes, phase_wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def serve_audio_full():
+    """seamless-m4t-large-v2 at full width and depth on the card through the
+    serving steps, its encoder's memory computed once. Returns the flash
+    launches of one prefill from frames and of one decode step."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import _encode_memory, init_cache
+    from repro_torch.serve.step import make_decode_step, make_prefill_step
+
+    t_phase = time.perf_counter()
+    held_gb = free_card() / 1e9
+    cfg, lm, init_s = init_full(AUDIO_ARCH)
+    if AUDIO_FRAMES != PROMPT_LEN // cfg.enc_frames_ratio:
+        raise AssertionError(f"{AUDIO_ARCH}: {AUDIO_FRAMES} frames for {PROMPT_LEN} tokens")
+    frames = torch.as_tensor(
+        np.random.default_rng(SEED).standard_normal((SLOTS, AUDIO_FRAMES, cfg.d_model)),
+        dtype=torch.float32, device="cuda").to(torch.bfloat16)
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (SLOTS, PROMPT_LEN), dtype=np.int32), device="cuda")
+    rt = Runtime("cuda", torch.bfloat16, "auto")
+    prefill, decode = make_prefill_step(cfg, rt), make_decode_step(cfg, rt)
+    cross = block_counts(cfg)["cross_attn"]
+
+    def counted(what, want, fn):
+        flash_attention.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        if flash_attention.launches != want:
+            raise AssertionError(f"{AUDIO_ARCH} {what}: {flash_attention.launches} flash "
+                                 f"launches != {want}")
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    memory = counted("encoder", cfg.enc_layers,
+                     lambda: _encode_memory(lm, cfg, rt, {"frames": frames}))
+    from_frames = counted("prefill from frames", prefill_launches(cfg, frames=True)[0],
+                          lambda: prefill(lm, {"tokens": tokens, "frames": frames}))
+    from_memory = counted("prefill from memory", prefill_launches(cfg)[0],
+                          lambda: prefill(lm, {"tokens": tokens, "memory": memory}))
+    if not torch.equal(from_frames, from_memory):
+        raise AssertionError(f"{AUDIO_ARCH}: the prefill from the memoised memory differs from "
+                             "the prefill from frames")
+    want = make_prefill_step(cfg, Runtime("cuda", torch.bfloat16, "reference"))(
+        lm, {"tokens": tokens, "frames": frames})
+    err, top1 = kernel_vs_plain(AUDIO_ARCH, from_frames, want)
+    if not err < 3e-2:
+        raise AssertionError(f"{AUDIO_ARCH}: kernel prefill logits off the plain version's "
+                             f"by {err}")
+
+    # the prompt replayed through decode steps to fill the cache (as the
+    # Engine does), then greedy decode steps, all with the memoised memory
+    caches = init_cache(cfg, rt, SLOTS, MAX_LEN, dtype=torch.bfloat16)
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    for t in range(PROMPT_LEN):
+        _, logits, caches = decode(lm, {"tokens": tokens[:, t:t + 1], "index": t,
+                                        "memory": memory}, caches)
+    replay_err = float((logits.float() - from_frames.float()).abs().max()
+                       / from_frames.float().abs().max())
+    nxt, out = from_frames.argmax(-1).to(torch.int32), []
+    for step in range(AUDIO_NEW):
+        nxt, _, caches = decode(lm, {"tokens": nxt[:, None], "index": PROMPT_LEN + step,
+                                     "memory": memory}, caches)
+        out.append(nxt)
+    out = torch.stack(out, dim=1).cpu()
+    decode_wall = time.perf_counter() - t0
+    decode_launches = flash_attention.launches
+    if decode_launches != cross * (PROMPT_LEN + AUDIO_NEW):
+        raise AssertionError(f"{AUDIO_ARCH}: {decode_launches} flash launches in "
+                             f"{PROMPT_LEN + AUDIO_NEW} decode steps, {cross} a step expected")
+    if not (out.shape == (SLOTS, AUDIO_NEW) and bool(((out >= 0) & (out < cfg.vocab)).all())):
+        raise AssertionError(f"{AUDIO_ARCH}: decoded tokens {out.tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+
+    prefill_ms = cuda_ms(lambda: prefill(lm, {"tokens": tokens, "frames": frames}), 3, warmup=1)
+    prefill_memory_ms = cuda_ms(lambda: prefill(lm, {"tokens": tokens, "memory": memory}), 3,
+                                warmup=1)
+    step = {"tokens": tokens[:, :1], "index": PROMPT_LEN + AUDIO_NEW, "memory": memory}
+    decode_ms = cuda_ms(lambda: decode(lm, step, caches), 10, warmup=2)
+    log("audio", arch=AUDIO_ARCH, params=cfg.total_params(), init_s=init_s,
+        held_before_gb=held_gb, frames=AUDIO_FRAMES, prompt_len=PROMPT_LEN, slots=SLOTS,
+        decode_steps=PROMPT_LEN + AUDIO_NEW, new_tokens=AUDIO_NEW,
+        prefill_flash_launches=prefill_launches(cfg, frames=True)[0],
+        decode_flash_launches_per_step=cross, memory_prefill_bit_equal=True,
+        prefill_ms=prefill_ms, prefill_from_memory_ms=prefill_memory_ms,
+        decode_step_ms=decode_ms, decode_wall_s=decode_wall,
+        generated_tokens_per_s=SLOTS * AUDIO_NEW / decode_wall,
+        max_memory_allocated_gb=peak / 1e9, logits_rel_err_vs_plain=err,
+        top1_agreement_vs_plain=top1, replay_last_step_rel_err_vs_prefill=replay_err,
+        phase_wall_s=time.perf_counter() - t_phase)
+    return {"prefill_from_frames": prefill_launches(cfg, frames=True)[0],
+            "decode_step": cross}
 
 
 def main() -> int:
@@ -734,6 +998,12 @@ def main() -> int:
         check_flash(1, 256, 256, 4, 1, 128, True, dtype)
         check_flash(1, 70, 130, 2, 2, 32, False, dtype)
     check_flash(2, 192, 192, 2, 3, 64, True, torch.float32)  # one head a tile (G 3)
+    moe_flash = check_flash(*MOE_FLASH, torch.bfloat16, timed=True)
+    check_flash(*MOE_FLASH, torch.float32)
+    audio_flash = {}
+    for name, shape in AUDIO_FLASH.items():
+        audio_flash[name] = check_flash(*shape, torch.bfloat16, timed=True)
+        check_flash(*shape, torch.float32)
 
     # 7. ssd kernel against its plain version
     ssd_path = check_ssd(4, 512, 24, 64, 128, 256, timed=True)
@@ -755,7 +1025,15 @@ def main() -> int:
     if ssd_launches == 0:
         raise AssertionError("the mamba serving path never launched the ssd kernel")
 
+    # 11. moonshot-v1-16b-a3b at full width: its serving path, counted from zero
+    moe_launches = serve_moe_full()
+
+    # 12. seamless-m4t-large-v2 at full width through the serving steps
+    audio_launches = serve_audio_full()
+
     print(smi, flush=True)
+    timed_keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms",
+                  "bound_ms", "bound_by", "library_ms", "library_graph_ms")
     print(json.dumps({"kernels": [{
         "name": "crms_grid", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": main_launches, "max_abs_err": path_shape["max_abs_err"],
@@ -774,6 +1052,10 @@ def main() -> int:
         "float32": {key: flash_f32[key] for key in (
             "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms", "bound_ms",
             "bound_by", "library_ms", "library_graph_ms")},
+        "moonshot": {"launches": moe_launches, **{key: moe_flash[key] for key in timed_keys}},
+        "seamless": {"launches": audio_launches,
+                     **{name: {key: res[key] for key in timed_keys}
+                        for name, res in audio_flash.items()}},
     }, {
         "name": "ssd_chunk", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
         "launches": ssd_launches, "max_abs_err": ssd_path["max_abs_err"],

@@ -68,38 +68,57 @@ def _block_shapes(kind: str, cfg) -> dict:
         return {"mamba": {"w_in": (d, 2 * d_in + 2 * N + nh), "conv_w": (m.d_conv, ch),
                           "conv_b": (ch,), "a_log": (nh,), "d_skip": (nh,), "dt_bias": (nh,),
                           "norm_w": (d_in,), "w_out": (d_in, d)}}
-    if kind == "self_attn":
+    if kind in ("self_attn", "cross_attn"):
         shapes = {"wq": (d, cfg.n_heads, hd), "wk": (d, cfg.kv_heads, hd),
                   "wv": (d, cfg.kv_heads, hd), "wo": (cfg.n_heads, hd, d)}
         if cfg.qkv_bias:
             shapes.update(bq=(cfg.n_heads, hd), bk=(cfg.kv_heads, hd), bv=(cfg.kv_heads, hd))
         return {"attn": shapes}
+    if kind == "moe":
+        E, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        return {"moe": {"router": (d, E), "w_gate": (E, d, f), "w_up": (E, d, f),
+                        "w_down": (E, f, d)}}
     shapes = {"w_up": (d, cfg.d_ff), "w_down": (cfg.d_ff, d)}
     if cfg.act in ("swiglu", "geglu"):
         shapes["w_gate"] = (d, cfg.d_ff)
     return {"mlp": shapes}
 
 
+def _weight_scales(cfg) -> dict:
+    """{group: {name: scale}} of the weights drawn N(0, scale²): the
+    reference's fan-in scales. Keyed by group as well as name, since an
+    expert's ``w_down`` has fan-in ``d_ff_expert``, a dense MLP's ``d_ff``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = {"wq": d**-0.5, "wk": d**-0.5, "wv": d**-0.5, "wo": (cfg.n_heads * hd) ** -0.5}
+    scales = {"attn": attn,
+              "mlp": {"w_up": d**-0.5, "w_gate": d**-0.5, "w_down": cfg.d_ff**-0.5}}
+    if cfg.moe is not None:
+        scales["moe"] = {"router": d**-0.5, "w_gate": d**-0.5, "w_up": d**-0.5,
+                         "w_down": cfg.moe.d_ff_expert**-0.5}
+    if cfg.mamba is not None:
+        scales["mamba"] = {"w_in": d**-0.5, "w_out": cfg.mamba.d_inner(d) ** -0.5}
+    return scales
+
+
 def numpy_params(cfg, seed: int) -> dict:
-    """A dense- or ssm-family parameter tree in the reference's layout (stage
-    leaves stacked ``(repeat, ...)``) as float32 NumPy arrays from
+    """A parameter tree in the reference's layout (stage leaves stacked
+    ``(repeat, ...)``; the audio family's ``encoder`` and ``enc_norm``, the
+    vlm family's ``vision_proj``) as float32 NumPy arrays from
     ``np.random.default_rng(seed)``: normal weights with the reference's
     fan-in scales (the Mamba conv 0.1); norm weights, qkv biases and the
     Mamba constants (``conv_b``, ``a_log``, ``dt_bias`` around 0, ``d_skip``
     and ``norm_w`` around 1) at their reference init plus 0.1·N(0, 1), so
     that tests exercise each of them. The reference takes it as
     ``jax.tree.map(jnp.asarray, tree)``, the port by ``params_from_jax``."""
-    from repro_torch.models.model import _check_ported
+    from repro_torch.models.model import encoder_stage
 
-    _check_ported(cfg)
     rng = np.random.default_rng(seed)
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+    d = cfg.d_model
     norm0 = 0.0 if cfg.norm_plus_one else 1.0
-    scales = {"wq": d**-0.5, "wk": d**-0.5, "wv": d**-0.5, "wo": (cfg.n_heads * hd) ** -0.5,
-              "w_up": d**-0.5, "w_gate": d**-0.5, "w_down": cfg.d_ff**-0.5,
-              "w_in": d**-0.5}
-    if cfg.mamba is not None:
-        scales["w_out"] = cfg.mamba.d_inner(d) ** -0.5
+    scales = _weight_scales(cfg)
+    stages = [(f"stage{si}", stage) for si, stage in enumerate(cfg.stages())]
+    if cfg.family == "audio":
+        stages.append(("encoder", encoder_stage(cfg)))
     means = {"d_skip": 1.0, "norm_w": 1.0}  # the rest start at 0
 
     def draw(shape, scale, mean=0.0):
@@ -109,24 +128,28 @@ def numpy_params(cfg, seed: int) -> dict:
             "final_norm": {"w": draw((d,), 0.1, norm0)}}
     if not cfg.tie_embeddings:
         tree["lm_head"] = draw((d, cfg.vocab), d**-0.5)
-    for si, stage in enumerate(cfg.stages()):
+    for key, stage in stages:
         st = {}
         for i, (kind, _) in enumerate(stage.blocks):
             blk = {"norm": {"w": draw((stage.repeat, d), 0.1, norm0)}}
             for group, shapes in _block_shapes(kind, cfg).items():
-                blk[group] = {name: draw((stage.repeat, *shape), scales.get(name, 0.1),
-                                         means.get(name, 0.0))
+                blk[group] = {name: draw((stage.repeat, *shape),
+                                         scales[group].get(name, 0.1), means.get(name, 0.0))
                               for name, shape in shapes.items()}
             st[f"b{i}"] = blk
-        tree[f"stage{si}"] = st
+        tree[key] = st
+    if cfg.family == "audio":
+        tree["enc_norm"] = {"w": draw((d,), 0.1, norm0)}
+    if cfg.family == "vlm":
+        tree["vision_proj"] = draw((cfg.d_vision, d), cfg.d_vision**-0.5)
     return tree
 
 
 def params_from_jax(tree, cfg, device=None, dtype=torch.float32):
     """An ``LM`` on ``device`` (the CUDA device unless named) holding the
     reference's parameter tree ``tree`` (leaves as NumPy arrays, or anything
-    ``np.asarray`` takes), cast to ``dtype``. Raises ValueError on a missing,
-    extra or misshapen leaf."""
+    ``np.asarray`` takes), cast to ``dtype`` (the MoE router stays float32).
+    Raises ValueError on a missing, extra or misshapen leaf."""
     from repro_torch.models.model import LM
 
     lm = LM(cfg, device, dtype)
@@ -151,10 +174,17 @@ def params_from_jax(tree, cfg, device=None, dtype=torch.float32):
     put(lm.final_norm.w, ("final_norm", "w"))
     if not cfg.tie_embeddings:
         put(lm.lm_head, ("lm_head",))
-    stages = cfg.stages()
-    for layer, (si, r) in zip(lm.layers, lm.stage_of):
+    stage_layers = [(f"stage{si}", r, cfg.stages()[si].repeat, layer)
+                    for layer, (si, r) in zip(lm.layers, lm.stage_of)]
+    if cfg.family == "audio":
+        stage_layers += [("encoder", r, cfg.enc_layers, layer)
+                         for r, layer in enumerate(lm.encoder)]
+        put(lm.enc_norm.w, ("enc_norm", "w"))
+    if cfg.family == "vlm":
+        put(lm.vision_proj, ("vision_proj",))
+    for tree_key, r, repeats, layer in stage_layers:
         for i, block in enumerate(layer):
-            key, repeats = (f"stage{si}", f"b{i}"), stages[si].repeat
+            key = (tree_key, f"b{i}")
             put(block.norm.w, key + ("norm", "w"), repeats, r)
             for group, shapes in _block_shapes(block.kind, cfg).items():
                 for name in shapes:

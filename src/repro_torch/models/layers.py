@@ -1,6 +1,6 @@
-"""Core layers of the dense model family: norms, RoPE, GQA/MQA attention
-(prefill through the flash kernel behind ``kernels.ops``, decode over a KV
-cache), gated MLPs.
+"""Core layers of the model substrate: norms, RoPE, GQA/MQA self- and
+cross-attention (prefill and cross-attention through the flash kernel behind
+``kernels.ops``, decode over a KV cache), gated MLPs.
 
 Parameters keep the reference's layouts (``repro/models/layers.py``): q/k/v
 projections (d, heads, hd), the output projection (heads, hd, d), MLP
@@ -104,23 +104,27 @@ class Attention(nn.Module):
 
 
 def apply_attention(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, positions,
-                    causal: bool = True, cache=None):
-    """Returns (out (B,S,d), new_cache or None). ``cache`` is
-    dict(k=(B,KV,T,hd), v=..., index=int); this step's k/v are written into
-    its tensors in place (the reference returns updated copies)."""
+                    causal: bool = True, memory=None, cache=None, use_rope: bool = True):
+    """Returns (out (B,S,d), new_cache or None). ``memory`` (B, S_src, d),
+    already normed, is the source of k/v for cross-attention, which is never
+    causal and takes no RoPE. ``cache`` is dict(k=(B,KV,T,hd), v=...,
+    index=int); this step's k/v are written into its tensors in place (the
+    reference returns updated copies)."""
     hd = cfg.resolved_head_dim
     B, S, _ = x.shape
     dt = runtime.compute_dtype
+    kv_src = memory if memory is not None else x
 
     q = torch.einsum("bsd,dnh->bsnh", x, p.wq.to(dt))
-    k = torch.einsum("bsd,dnh->bsnh", x, p.wk.to(dt))
-    v = torch.einsum("bsd,dnh->bsnh", x, p.wv.to(dt))
+    k = torch.einsum("bsd,dnh->bsnh", kv_src, p.wk.to(dt))
+    v = torch.einsum("bsd,dnh->bsnh", kv_src, p.wv.to(dt))
     if cfg.qkv_bias:
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    q = rope_embed(q, positions, cfg.rope_theta)
-    k = rope_embed(k, positions, cfg.rope_theta)
+    if use_rope and memory is None:
+        q = rope_embed(q, positions, cfg.rope_theta)
+        k = rope_embed(k, positions, cfg.rope_theta)
 
     KV = cfg.kv_heads
     G = cfg.n_heads // KV
@@ -151,7 +155,8 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
         o = torch.einsum("bkgst,bkth->bskgh", w.to(dt).to(F32), vv)
         out = o.reshape(B, S, cfg.n_heads, hd).to(dt)
     else:
-        out5 = kops.flash_attention(qg, k, v, causal=causal, backend=runtime.attn_backend)
+        out5 = kops.flash_attention(qg, k, v, causal=causal and memory is None,
+                                    backend=runtime.attn_backend)
         out = out5.reshape(B, S, cfg.n_heads, hd).to(dt)
 
     y = torch.einsum("bsnh,nhd->bsd", out, p.wo.to(dt))

@@ -1,76 +1,79 @@
 """The language model of the reference's model substrate
-(``repro/models/model.py``), in PyTorch: the dense and ssm (Mamba2)
-families.
+(``repro/models/model.py``), in PyTorch: all of its families (dense, moe,
+hybrid, ssm, vlm, audio).
 
 Entry points, as in the reference:
   init_params(cfg, generator, dtype, device)   -> LM with random weights
-  apply_lm(lm, cfg, runtime, tokens)            -> logits (prefill forward), aux
+  apply_lm(lm, cfg, runtime, tokens, extra)     -> logits (prefill forward), aux
   init_cache(cfg, runtime, batch, max_len)      -> decode cache
-  apply_decode(lm, cfg, runtime, tokens, cache, index) -> logits, cache
+  apply_decode(lm, cfg, runtime, tokens, cache, index, extra) -> logits, cache
 
-The reference scans each stage over its repeat count; here every repeat is
-one entry of ``LM.layers`` (an ``nn.ModuleList`` of its blocks), and the
-decode cache keeps the reference's per-stage layout with a leading repeat
-axis, updated in place.
+``extra`` holds the vlm family's ``patches`` (B, Np, d_vision), the audio
+family's ``frames`` (B, F, d) or, for either, a precomputed ``memory`` (B,
+S_src, d) (``_encode_memory``). The reference scans each stage over its
+repeat count; here every repeat is one entry of ``LM.layers`` (an
+``nn.ModuleList`` of its blocks), and the decode cache keeps the reference's
+per-stage layout with a leading repeat axis, updated in place.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, Stage
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import Runtime
 
 F32 = torch.float32
-PORTED_BLOCKS = ("self_attn", "mlp", "mamba")
-# what is still to port, by the ROADMAP item that ports it
-REMAINING = "ROADMAP Queue 1, 'Model substrate: remaining blocks'"
-NOT_PORTED = {
-    "moe": f"the MoE block ({REMAINING})",
-    "cross_attn": f"cross-attention ({REMAINING})",
-}
 
 
-def _check_ported(cfg: ModelConfig):
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet ({REMAINING})")
-    for stage in cfg.stages():
-        for kind, _ in stage.blocks:
-            if kind not in PORTED_BLOCKS:
-                raise NotImplementedError(f"{cfg.name}: {NOT_PORTED[kind]} is not ported yet")
+def encoder_stage(cfg: ModelConfig) -> Stage:
+    """The audio family's encoder: non-causal self-attention and an MLP,
+    ``enc_layers`` times (the reference builds the same Stage inline)."""
+    return Stage(blocks=(("self_attn", {"causal": False}), ("mlp", {})), repeat=cfg.enc_layers)
 
 
 class Block(nn.Module):
-    """One pre-norm residual block: ``norm`` and one of ``attn`` / ``mlp`` /
-    ``mamba``."""
+    """One pre-norm residual block: ``norm`` and one of ``attn`` (self- or
+    cross-attention) / ``mlp`` / ``moe`` / ``mamba``."""
 
     def __init__(self, kind: str, opts: dict, cfg: ModelConfig, device, dtype):
         super().__init__()
         self.kind = kind
         self.causal = opts.get("causal", True)
         self.norm = L.Norm(cfg, device, dtype)
-        if kind == "self_attn":
+        if kind in ("self_attn", "cross_attn"):
             self.attn = L.Attention(cfg, device, dtype)
+        elif kind == "mlp":
+            self.mlp = L.MLP(cfg, device, dtype)
+        elif kind == "moe":
+            self.moe = MOE.MoE(cfg, device, dtype)
         elif kind == "mamba":
             self.mamba = MB.Mamba(cfg, device, dtype)
         else:
-            self.mlp = L.MLP(cfg, device, dtype)
+            raise ValueError(kind)
+
+
+def _stage_layers(stage: Stage, cfg: ModelConfig, device, dtype) -> nn.ModuleList:
+    return nn.ModuleList(
+        nn.ModuleList(Block(kind, opts, cfg, device, dtype) for kind, opts in stage.blocks)
+        for _ in range(stage.repeat))
 
 
 class LM(nn.Module):
-    """Dense- and ssm-family parameters: ``embed`` (V, d), ``final_norm``, ``lm_head``
-    (d, V) unless tied, and ``layers[i]`` = the blocks of one stage repeat.
-    ``stage_of[i]`` is (stage index, repeat index) of layer i. Weights start
-    at zero (norm weights at their reference init); ``init_params`` draws
-    them, ``interop.params_from_jax`` loads them."""
+    """Parameters: ``embed`` (V, d), ``final_norm``, ``lm_head`` (d, V) unless
+    tied, and ``layers[i]`` = the blocks of one stage repeat; ``stage_of[i]``
+    is (stage index, repeat index) of layer i. The audio family adds
+    ``encoder`` (its layers, as ``layers``) and ``enc_norm``, the vlm family
+    ``vision_proj`` (d_vision, d). Weights start at zero (norm weights at
+    their reference init); ``init_params`` draws them,
+    ``interop.params_from_jax`` loads them."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=F32):
         super().__init__()
-        _check_ported(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = L._param((cfg.vocab, cfg.d_model), dev, dtype)
@@ -80,10 +83,13 @@ class LM(nn.Module):
         self.layers = nn.ModuleList()
         self.stage_of = []
         for si, stage in enumerate(cfg.stages()):
-            for r in range(stage.repeat):
-                self.layers.append(nn.ModuleList(
-                    Block(kind, opts, cfg, dev, dtype) for kind, opts in stage.blocks))
-                self.stage_of.append((si, r))
+            self.layers.extend(_stage_layers(stage, cfg, dev, dtype))
+            self.stage_of += [(si, r) for r in range(stage.repeat)]
+        if cfg.family == "audio":
+            self.encoder = _stage_layers(encoder_stage(cfg), cfg, dev, dtype)
+            self.enc_norm = L.Norm(cfg, dev, dtype)
+        if cfg.family == "vlm":
+            self.vision_proj = L._param((cfg.d_vision, cfg.d_model), dev, dtype)
 
 
 # ----------------------------------------------------------------------------
@@ -93,7 +99,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
                 device=None) -> LM:
     """An LM with the reference's initialisation (``init_params``: normal
     weights scaled by fan-in, the Mamba conv by 0.1, norm weights, biases
-    and the Mamba constants at their reference values),
+    and the Mamba constants at their reference values; the MoE router in
+    float32 whatever ``param_dtype``),
     drawn from ``generator`` in float32 and cast to ``param_dtype``. The
     generator lives on the model's device."""
     lm = LM(cfg, device, param_dtype)
@@ -107,9 +114,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
     normal_(lm.embed, d**-0.5)
     if not cfg.tie_embeddings:
         normal_(lm.lm_head, d**-0.5)
-    for layer in lm.layers:
+    layers = list(lm.layers) + list(getattr(lm, "encoder", ()))
+    for layer in layers:
         for block in layer:
-            if block.kind == "self_attn":
+            if block.kind in ("self_attn", "cross_attn"):
                 for name in ("wq", "wk", "wv"):
                     normal_(getattr(block.attn, name), d**-0.5)
                 normal_(block.attn.wo, (cfg.n_heads * hd) ** -0.5)
@@ -117,11 +125,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
                 normal_(block.mamba.w_in, d**-0.5)
                 normal_(block.mamba.conv_w, 0.1)
                 normal_(block.mamba.w_out, block.mamba.w_out.shape[0] ** -0.5)
+            elif block.kind == "moe":
+                for name in ("router", "w_gate", "w_up"):
+                    normal_(getattr(block.moe, name), d**-0.5)
+                normal_(block.moe.w_down, cfg.moe.d_ff_expert**-0.5)
             else:
                 normal_(block.mlp.w_up, d**-0.5)
                 normal_(block.mlp.w_down, cfg.d_ff**-0.5)
                 if cfg.act in ("swiglu", "geglu"):
                     normal_(block.mlp.w_gate, d**-0.5)
+    if cfg.family == "vlm":
+        normal_(lm.vision_proj, cfg.d_vision**-0.5)
     return lm
 
 
@@ -129,17 +143,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
 # Forward passes
 # ----------------------------------------------------------------------------
 def _apply_block(block: Block, x, cfg: ModelConfig, runtime: Runtime, *, positions,
-                 cache=None):
+                 memory=None, cache=None):
+    """Returns (x + the block's output, its aux loss or None, its new cache
+    or None)."""
     h = L.apply_norm(block.norm, x, cfg)
-    new_cache = None
+    aux = new_cache = None
     if block.kind == "self_attn":
         y, new_cache = L.apply_attention(block.attn, h, cfg, runtime, positions=positions,
                                          causal=block.causal, cache=cache)
-    elif block.kind == "mamba":
-        y, new_cache = MB.apply_mamba(block.mamba, h, cfg, runtime, cache=cache)
-    else:
+    elif block.kind == "cross_attn":
+        y, _ = L.apply_attention(block.attn, h, cfg, runtime, positions=positions,
+                                 causal=False, memory=memory, use_rope=False)
+    elif block.kind == "mlp":
         y = L.apply_mlp(block.mlp, h, cfg, runtime)
-    return x + y, new_cache
+    elif block.kind == "moe":
+        y, aux = MOE.apply_moe(block.moe, h, cfg, runtime, cf=cfg.moe_cf)
+    else:
+        y, new_cache = MB.apply_mamba(block.mamba, h, cfg, runtime, cache=cache)
+    return x + y, aux, new_cache
 
 
 def _embed(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens):
@@ -162,24 +183,42 @@ def _tokens(tokens, runtime: Runtime):
     return torch.as_tensor(tokens, device=runtime.device)
 
 
-def _no_extra(extra_inputs):
-    if extra_inputs:
-        raise NotImplementedError(
-            f"extra inputs {sorted(extra_inputs)} need the vlm/audio families ({REMAINING})")
+def _encode_memory(lm: LM, cfg: ModelConfig, runtime: Runtime, extra_inputs):
+    """The cross-attention source (B, S_src, d) in the compute dtype, or
+    None: vlm projects ``patches``, audio runs the encoder over ``frames`` at
+    positions 0..F-1. A precomputed ``memory`` (the encoder output memoised
+    at admission, the serving path) short-circuits both."""
+    dt, dev = runtime.compute_dtype, runtime.device
+    if "memory" in extra_inputs:
+        return torch.as_tensor(extra_inputs["memory"], device=dev).to(dt)
+    if cfg.family == "vlm":
+        patches = torch.as_tensor(extra_inputs["patches"], device=dev).to(dt)
+        return torch.einsum("bpv,vd->bpd", patches, lm.vision_proj.to(dt))
+    if cfg.family == "audio":
+        x = torch.as_tensor(extra_inputs["frames"], device=dev).to(dt)
+        pos = torch.arange(x.shape[1], device=dev)[None, :]
+        for layer in lm.encoder:
+            for block in layer:
+                x, _, _ = _apply_block(block, x, cfg, runtime, positions=pos)
+        return L.apply_norm(lm.enc_norm, x, cfg)
+    return None
 
 
 def apply_lm(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs=None):
-    """Full forward (prefill): tokens (B, S) -> logits (B, S, V), aux (0 for
-    the dense and ssm families)."""
-    _no_extra(extra_inputs)
+    """Full forward (prefill): tokens (B, S) -> logits (B, S, V), aux (the
+    MoE blocks' load-balance losses summed over the layers; 0 without MoE)."""
     tokens = _tokens(tokens, runtime)
     S = tokens.shape[1]
     x = _embed(lm, cfg, runtime, tokens)
     positions = torch.arange(S, device=x.device)[None, :]
+    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {})
+    aux_total = torch.zeros((), dtype=F32, device=x.device)
     for layer in lm.layers:
         for block in layer:
-            x, _ = _apply_block(block, x, cfg, runtime, positions=positions)
-    return _head(lm, cfg, runtime, x), torch.zeros((), dtype=F32, device=x.device)
+            x, aux, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory)
+            if aux is not None:
+                aux_total = aux_total + aux
+    return _head(lm, cfg, runtime, x), aux_total
 
 
 # ----------------------------------------------------------------------------
@@ -190,8 +229,9 @@ def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
     """Cache mirroring the stage structure: caches[f"stage{si}"][f"b{i}"] =
     {"k", "v": (repeat, B, KV, max_len, hd), "index": (repeat,) int32} for
     attention, {"conv": (repeat, B, K-1, Ch) in ``dtype``, "ssm": (repeat, B,
-    H, P, N) float32 whatever ``dtype``} for Mamba."""
-    _check_ported(cfg)
+    H, P, N) float32 whatever ``dtype``} for Mamba. Cross-attention keeps no
+    cache: it recomputes k/v from the memory at every step, as the
+    reference does."""
     hd = cfg.resolved_head_dim
     dev = runtime.device
     m = cfg.mamba
@@ -224,11 +264,11 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
     this step's k/v (attention) or conv/ssm states (Mamba) into ``caches`` in
     place and returns (logits (B, 1, V), caches) with every attention layer's
     cache index set to ``index``."""
-    _no_extra(extra_inputs)
     index = int(index)
     tokens = _tokens(tokens, runtime)
     x = _embed(lm, cfg, runtime, tokens)
     positions = torch.full((1, 1), index, device=x.device)
+    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {})
     for layer, (si, r) in zip(lm.layers, lm.stage_of):
         st = caches.get(f"stage{si}")
         for i, block in enumerate(layer):
@@ -239,7 +279,8 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
             elif block.kind == "mamba":
                 blk = st[f"b{i}"]
                 cache = {"conv": blk["conv"][r], "ssm": blk["ssm"][r]}
-            x, _ = _apply_block(block, x, cfg, runtime, positions=positions, cache=cache)
+            x, _, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory,
+                                   cache=cache)
     for st in caches.values():
         for blk in (st or {}).values():
             if "index" in blk:  # attention caches only; a Mamba cache has no index

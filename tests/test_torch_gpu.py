@@ -1,6 +1,7 @@
 """Card-only tests of the port: the hand-written CUDA ``crms_grid``,
 flash-attention and SSD chunk kernels against their plain versions, and the
-launches of the allocator path and of a prefill through them.
+launches of the allocator path and of a prefill through them (dense, MoE
+and the audio encoder-decoder).
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -119,6 +120,13 @@ def test_main_path_launches_the_kernel(cuda_device):
     (1, 96, 96, 2, 8, 128, True, torch.float32), (1, 130, 130, 1, 3, 256, True, torch.float32),
     (1, 200, 333, 1, 8, 128, False, torch.float32), (1, 100, 37, 2, 4, 32, True, torch.float32),
     (1, 17, 17, 1, 8, 256, True, torch.float32), (1, 1, 40, 1, 8, 64, True, torch.float32),
+    # the full-width MoE and audio paths, both dtypes: moonshot-v1-16b-a3b's
+    # prefill; seamless-m4t-large-v2's encoder, cross-attention prefill and
+    # cross-attention decode (Sq 1: one live row in a tile)
+    *[(*shape, dtype) for shape in (
+        (4, 512, 512, 16, 1, 128, True), (4, 128, 128, 16, 1, 64, False),
+        (4, 512, 128, 16, 1, 64, False), (4, 1, 128, 16, 1, 64, False))
+      for dtype in (torch.bfloat16, torch.float32)],
 ])
 def test_flash_kernel_matches_plain(cuda_device, B, Sq, Skv, KV, G, hd, causal, dtype):
     rng = np.random.default_rng(B * Sq + hd)
@@ -173,6 +181,44 @@ def test_prefill_launches_the_flash_kernel_once_per_layer(cuda_device):
         assert flash_kernel.launches - before == (cfg.n_layers if backend == "auto" else 0)
     err = (logits["auto"] - logits["reference"]).abs().max() / logits["reference"].abs().max()
     assert float(err) < 1e-4
+
+
+def _prefill_launches(cuda_device, cfg, extra_fn, want):
+    """A reduced prefill on the card through the kernels and through their
+    plain versions: ``want`` flash launches, logits within 1e-4."""
+    lm = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                     device=cuda_device)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (2, 40)), device=cuda_device),
+             **extra_fn(rng)}
+    logits = {}
+    for backend in ("auto", "reference"):
+        before = flash_kernel.launches
+        rt = Runtime(cuda_device, torch.float32, backend)
+        logits[backend] = make_prefill_step(cfg, rt)(lm, batch)
+        torch.cuda.synchronize()
+        assert flash_kernel.launches - before == (want if backend == "auto" else 0)
+    err = (logits["auto"] - logits["reference"]).abs().max() / logits["reference"].abs().max()
+    assert float(err) < 1e-4
+
+
+@pytest.mark.gpu
+def test_moe_prefill_launches_the_flash_kernel_once_per_layer(cuda_device):
+    cfg = get_config("moonshot-v1-16b-a3b").reduced(n_layers=4)
+    _prefill_launches(cuda_device, cfg, lambda rng: {}, cfg.n_layers)
+
+
+@pytest.mark.gpu
+def test_audio_prefill_from_frames_launches_self_cross_and_encoder(cuda_device):
+    """seamless-m4t-large-v2 reduced, from frames: one flash launch per
+    decoder self-attention, cross-attention and encoder layer."""
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+
+    def frames(rng):
+        return {"frames": torch.as_tensor(rng.standard_normal((2, 10, cfg.d_model)),
+                                          dtype=torch.float32, device=cuda_device)}
+
+    _prefill_launches(cuda_device, cfg, frames, 2 * cfg.n_layers + cfg.enc_layers)
 
 
 @pytest.mark.gpu

@@ -1,11 +1,13 @@
-"""The port's model (``repro_torch.models``: the dense and ssm families)
-against the reference's (``repro.models``) on the same weights:
+"""The port's model (``repro_torch.models``, all ten architectures) against
+the reference's (``repro.models``) on the same weights:
 ``interop.numpy_params`` draws a tree in the reference's layout,
 ``params_from_jax`` loads it into the port's ``LM``. Reduced configurations,
 float32 compute, CPU (the plain versions of the flash and SSD chunk kernels).
 Bars as ``tests/test_models.py``: logits within 1e-4 of the reference
 relative to their max |logit|, decode equal to the full forward within
-1e-4."""
+1e-4; the MoE load-balance aux within rel 1e-6 of the reference's. The vlm
+and audio families get numpy-drawn ``patches`` / ``frames`` shaped as the
+reference's tests shape them."""
 import numpy as np
 import pytest
 import torch
@@ -24,10 +26,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as MB
 from repro_torch.models.layers import Runtime
-from repro_torch.models.model import LM, apply_decode, apply_lm, init_cache, init_params
+from repro_torch.models.model import (LM, _encode_memory, apply_decode, apply_lm, init_cache,
+                                      init_params)
 
-DENSE = ["gemma-2b", "minitron-4b", "codeqwen1.5-7b", "command-r-plus-104b"]
-PORTED = DENSE + ["mamba2-130m"]
+PORTED = list(ARCH_IDS)
 REF_RT = RL.Runtime(mesh=None, data_axes=("data",), compute_dtype=jnp.float32)
 RT = Runtime("cpu", torch.float32)
 SEED = 0
@@ -44,6 +46,22 @@ def _tokens(cfg, B, S, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab, (B, S)).astype(np.int32)
 
 
+def _extra(cfg, B, S, seed=2):
+    """``patches`` (vlm) or ``frames`` (audio) as tests/test_models.py shapes
+    them, from numpy; {} for the other families."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal((B, cfg.n_patches, cfg.d_vision)).astype(np.float32)}
+    if cfg.family == "audio":
+        F = max(S // cfg.enc_frames_ratio, 4)
+        return {"frames": rng.standard_normal((B, F, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def _jnp(extra):
+    return {k: jnp.asarray(v) for k, v in extra.items()}
+
+
 def _rel(got, want):
     want = np.asarray(want, np.float64)
     return float(np.max(np.abs(np.asarray(got, np.float64) - want)) / np.max(np.abs(want)))
@@ -53,30 +71,45 @@ def _rel(got, want):
 def test_apply_lm_matches_reference(arch):
     cfg, rcfg, lm, params = _models(arch)
     toks = _tokens(cfg, 2, 32)
-    want, want_aux = ref_apply_lm(params, rcfg, REF_RT, jnp.asarray(toks))
-    got, aux = apply_lm(lm, cfg, RT, torch.as_tensor(toks))
+    extra = _extra(cfg, 2, 32)
+    want, want_aux = ref_apply_lm(params, rcfg, REF_RT, jnp.asarray(toks), _jnp(extra))
+    got, aux = apply_lm(lm, cfg, RT, torch.as_tensor(toks), extra)
     assert got.shape == (2, 32, cfg.vocab) and got.dtype == torch.float32
     assert _rel(got.numpy(), want) < 1e-4
-    assert float(aux) == float(want_aux) == 0.0
+    assert aux.dtype == torch.float32
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * abs(float(want_aux))
+    assert (float(aux) > 0) == (cfg.moe is not None)
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_decode_matches_full_forward(arch):
+    """Step by step, the decode equals the full forward; for vlm and audio
+    (patches / frames passed at every step) it also equals the reference's
+    step by step decode."""
     cfg, rcfg, lm, params = _models(arch)
     B, S = 2, 16
     toks = torch.as_tensor(_tokens(cfg, B, S))
-    full, _ = apply_lm(lm, cfg, RT, toks)
+    extra = _extra(cfg, B, S)
+    full, _ = apply_lm(lm, cfg, RT, toks, extra)
     cache = init_cache(cfg, RT, B, max_len=S, dtype=torch.float32)
     steps = []
     for t in range(S):
-        lg, cache = apply_decode(lm, cfg, RT, toks[:, t:t + 1], cache, t)
+        lg, cache = apply_decode(lm, cfg, RT, toks[:, t:t + 1], cache, t, extra)
         steps.append(lg[:, 0])
-    assert _rel(torch.stack(steps, dim=1).numpy(), full.numpy()) < 1e-4
-    blk = cache["stage0"]["b0"]
-    if cfg.family == "ssm":  # a Mamba cache has no index; its SSM state is float32
-        assert "index" not in blk and blk["ssm"].dtype == torch.float32
-    else:
-        assert torch.all(blk["index"] == S - 1)
+    steps = torch.stack(steps, dim=1).numpy()
+    assert _rel(steps, full.numpy()) < 1e-4
+    if extra:
+        ref_cache = ref_init_cache(rcfg, REF_RT, B, max_len=S, dtype=jnp.float32)
+        for t in range(S):
+            ref_lg, ref_cache = ref_apply_decode(params, rcfg, REF_RT,
+                                                 jnp.asarray(toks[:, t:t + 1].numpy()),
+                                                 ref_cache, jnp.int32(t), _jnp(extra))
+            assert _rel(steps[:, t], np.asarray(ref_lg)[:, 0]) < 1e-4, t
+    for blk in cache["stage0"].values():
+        if "ssm" in blk:  # a Mamba cache has no index; its SSM state is float32
+            assert "index" not in blk and blk["ssm"].dtype == torch.float32
+        else:
+            assert torch.all(blk["index"] == S - 1)
 
 
 def test_prefill_fill_then_decode_continues():
@@ -224,13 +257,51 @@ def test_init_params_draws_from_the_generator():
     assert torch.all(a.final_norm.w == 0.0)  # gemma's (1 + w) norm starts at w = 0
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)))
-def test_non_dense_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        interop.numpy_params(cfg, SEED)
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "seamless-m4t-large-v2"])
+def test_memoised_memory_gives_the_same_logits(arch):
+    """A precomputed ``memory`` (the serving path's memoised encoder output
+    or patch projection) short-circuits ``_encode_memory``: the same logits
+    as passing ``patches`` / ``frames``, in prefill and in a decode step."""
+    cfg, rcfg, lm, params = _models(arch)
+    B, S = 2, 12
+    toks = torch.as_tensor(_tokens(cfg, B, S))
+    extra = _extra(cfg, B, S)
+    memory = _encode_memory(lm, cfg, RT, extra)
+    F = cfg.n_patches if cfg.family == "vlm" else extra["frames"].shape[1]
+    assert memory.shape == (B, F, cfg.d_model)
+    assert torch.equal(apply_lm(lm, cfg, RT, toks, extra)[0],
+                       apply_lm(lm, cfg, RT, toks, {"memory": memory})[0])
+    steps = {}
+    for name, ex in (("raw", extra), ("memory", {"memory": memory.numpy()})):
+        cache = init_cache(cfg, RT, B, max_len=S, dtype=torch.float32)
+        for t in range(3):
+            steps[name], cache = apply_decode(lm, cfg, RT, toks[:, t:t + 1], cache, t, ex)
+    assert torch.equal(steps["raw"], steps["memory"])
+    from repro.models.model import _encode_memory as ref_encode_memory
+
+    want = ref_encode_memory(params, rcfg, REF_RT, _jnp(extra))
+    assert _rel(memory.numpy(), want) < 1e-5
+
+
+def test_moe_init_params_scales_and_router_dtype():
+    """init_params draws the MoE leaves at the reference's scales (experts'
+    w_down at d_ff_expert^-0.5, not d_ff^-0.5) and keeps the router float32
+    in a bf16 model; vision_proj at d_vision^-0.5."""
+    cfg = get_config("moonshot-v1-16b-a3b").reduced(d_ff=1024)
+    lm = init_params(cfg, torch.Generator().manual_seed(0), torch.bfloat16, device="cpu")
+    moe = lm.layers[0][1].moe
+    assert moe.router.dtype == torch.float32 and moe.w_down.dtype == torch.bfloat16
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    for name, scale in (("router", d**-0.5), ("w_gate", d**-0.5), ("w_up", d**-0.5),
+                        ("w_down", f**-0.5)):
+        assert float(getattr(moe, name).float().std()) == pytest.approx(scale, rel=0.05), name
+    tree = interop.numpy_params(cfg, SEED)
+    assert float(tree["stage0"]["b1"]["moe"]["w_down"].std()) == pytest.approx(f**-0.5, rel=0.05)
+    loaded = interop.params_from_jax(tree, cfg, "cpu", torch.bfloat16)
+    assert loaded.layers[0][1].moe.router.dtype == torch.float32
+    vcfg = get_config("llama-3.2-vision-90b").reduced()
+    vlm = init_params(vcfg, torch.Generator().manual_seed(0), device="cpu")
+    assert float(vlm.vision_proj.std()) == pytest.approx(vcfg.d_vision**-0.5, rel=0.1)
 
 
 def test_params_from_jax_rejects_a_wrong_tree():

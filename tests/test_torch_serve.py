@@ -48,6 +48,9 @@ ENTRIES = {
     "minitron-4b": ("minitron-4b", {}),
     "codeqwen1.5-7b": ("codeqwen1.5-7b", {}),
     "mamba2-130m": ("mamba2-130m", {}),
+    "moonshot-v1-16b-a3b": ("moonshot-v1-16b-a3b", {}),
+    "llama4-scout-17b-a16e": ("llama4-scout-17b-a16e", {}),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", {}),
 }
 MARGIN = 1e-3  # tokens must agree where the reference's top-1/top-2 margin exceeds this
 LOGIT_RTOL = 1e-4  # prefill logits, relative to their max |logit|
