@@ -46,6 +46,7 @@ def rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+@torch.inference_mode()
 def compare(lm, cfg, tokens):
     """The two routes free and with each other's expert ids."""
     routes = {name: Runtime("cuda", torch.bfloat16, backend)

@@ -113,11 +113,50 @@ is non-zero:
                against plain within 3e-2; the prompt replayed through decode
                steps, then 16 greedy steps, with the memory (24 cross-attention
                launches a step); the same timings.
+               Phases 8-12 run under torch.inference_mode() (the parameters
+               are trainable; serving builds no graph).
+ 13. train-kernels — flash attention through its autograd.Function on the
+               card (the forward launches the kernel, counted) with dq, dk, dv
+               from the plain backward held against autograd through the naive
+               oracle: the training shape (2, 256, 256, 1, 8, 256) causal and
+               tests/test_kernels.py's shapes, f32 (atol 5e-5 / rtol 5e-4) and
+               bf16 (3e-2). At the training shape in bf16: the kernel's
+               forward, the plain backward and scaled_dot_product_attention's
+               forward + backward, as ms and graph_ms. ops.ssd_chunks'
+               gradients through the kernel route against the plain route at
+               (8, 512, 24, 64, 128, 256), within 2e-4 of each input's max
+               |grad|; the kernel's forward (ms and graph_ms) and the plain
+               backward (ms: it cannot be captured in a CUDA graph) timed.
+ 14. train-reduced — reduced gemma-2b, mamba2-130m, moonshot-v1-16b-a3b,
+               jamba-1.5-large-398b and seamless-m4t-large-v2 trained for 6
+               steps on the card in float32 through the kernels (AdamW, two
+               microbatches) against the JAX reference's losses and gradient
+               norms in tests/data/torch_train_golden.json: loss rtol 1e-4,
+               grad_norm rtol 1e-3, the kernel launches the steps imply (one
+               per attention / Mamba layer per microbatch, twice with the
+               recompute); the Trainer's crash-and-resume on reduced gemma-2b
+               against an uninterrupted run (parameters within 1e-6).
+ 15. gemma-train — gemma-2b at full width and depth: float32 parameters and
+               AdamW (for_config), bf16 compute, B 8 x S 256 in 4 microbatches,
+               6 steps on SyntheticTokens: losses finite and the last below
+               the first, 144 flash launches a step (18 layers x 4
+               microbatches x 2); one microbatch through the kernels against
+               the plain forwards (loss within 1e-2 relative, global relative
+               L2 gradient gap within 3e-2), with the same gap in float32
+               compute (the kernel's part) and the plain route's bf16 gradients
+               against its float32 ones (the bf16 backward's rounding) beside
+               it; step times, tokens/s, peak memory, and from a profiled 7th
+               step the device busy time and the flash forward's and
+               backward's share of it.
+ 16. mamba-train — mamba2-130m at full width, B 8 x S 512 (two chunks of
+               256) in one microbatch, the same checks and numbers with 48 ssd
+               launches a step.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
 the script prints no result and exits non-zero.
 """
+import contextlib
 import gc
 import json
 import re
@@ -133,6 +172,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 SERVE_GOLDEN = ROOT / "tests" / "data" / "torch_serve_golden.json"
+TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_train_golden.json"
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/crms_grid.cu"
 REPLACES = "src/repro/kernels/crms_grid.py:86"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -172,6 +212,18 @@ MOE_NEW = AUDIO_NEW = 16
 AUDIO_FRAMES = 128
 # flash shapes (B, Sq, Skv, KV, G, hd, causal) of those paths
 MOE_FLASH = (SLOTS, PROMPT_LEN, PROMPT_LEN, 16, 1, 128, True)
+# training (phases 13-16): TRAIN_STEPS steps at full width, gemma-2b at
+# GEMMA_TRAIN (B, S) in its 4 microbatches (attention (2, 256, 256, 1, 8, 256)
+# each), mamba2-130m at MAMBA_TRAIN (two chunks of 256); the flash gradient
+# cases besides the training shape: tests/test_kernels.py's (B, Sq, Skv, KV,
+# G, hd, causal)
+TRAIN_STEPS = 6
+GEMMA_TRAIN = (8, 256)
+MAMBA_TRAIN = (8, 512)
+FLASH_TRAIN = (2, 256, 256, 1, 8, 256, True)
+FLASH_GRAD_CASES = [(1, 96, 96, 2, 2, 32, True), (1, 70, 130, 2, 2, 32, False),
+                    (2, 192, 192, 2, 3, 64, True), (1, 256, 256, 4, 1, 128, True)]
+SSD_TRAIN = (8, 512, 24, 64, 128, 256)
 AUDIO_FLASH = {
     "encoder": (SLOTS, AUDIO_FRAMES, AUDIO_FRAMES, 16, 1, 64, False),
     "self": (SLOTS, PROMPT_LEN, PROMPT_LEN, 16, 1, 64, True),
@@ -912,6 +964,440 @@ def serve_audio_full():
             "decode_step": cross}
 
 
+# ----------------------------------------------------------------------------
+# Training (phases 13-16)
+# ----------------------------------------------------------------------------
+def train_batch(cfg, setup, step):
+    """Step ``step``'s batch of a training setup (the golden file's): the
+    SyntheticTokens draws for (seed, step) and, for the vlm / audio
+    families, patches (B, n_patches, d_vision) / frames (B, max(S //
+    enc_frames_ratio, 4), d) from default_rng([seed, step]), as NumPy."""
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    B, S, seed = setup["batch"], setup["seq_len"], setup["seed"]
+    batch = SyntheticTokens(cfg.vocab, S, B, seed=seed).batch(step)
+    rng = np.random.default_rng([seed, step])
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((B, cfg.n_patches, cfg.d_vision)).astype(np.float32)
+    if cfg.family == "audio":
+        frames = (B, max(S // cfg.enc_frames_ratio, 4), cfg.d_model)
+        batch["frames"] = rng.standard_normal(frames).astype(np.float32)
+    return batch
+
+
+def train_curve(cfg, setup, device, attn_backend="auto", routes=None):
+    """The port's train step for ``setup["steps"]`` steps on
+    ``interop.numpy_params(cfg, seed)`` weights and ``train_batch`` batches,
+    float32, AdamW at ``setup["lr"]``, ``setup["microbatches"]``
+    microbatches; with ``routes`` (per step, the expert ids of each MoE
+    call) the MoE blocks replay them. Returns [(loss, grad_norm)] per step."""
+    from repro_torch import interop
+    from repro_torch.models import moe
+    from repro_torch.models.layers import Runtime
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import make_train_step
+
+    lm = interop.params_from_jax(interop.numpy_params(cfg, setup["seed"]), cfg, device)
+    opt = adamw(lr=setup["lr"])
+    state = opt.init(dict(lm.named_parameters()))
+    step_fn = make_train_step(cfg, Runtime(device, torch.float32, attn_backend), opt,
+                              setup["microbatches"])
+    curve = []
+    for step in range(setup["steps"]):
+        batch = {k: torch.as_tensor(v, device=device) for k, v in
+                 train_batch(cfg, setup, step).items()}
+        with (moe.replaying_routes([torch.as_tensor(ids, device=device) for ids in routes[step]])
+              if routes else contextlib.nullcontext()):
+            lm, state, metrics = step_fn(lm, state, batch)
+        curve.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    return curve
+
+
+def train_launches(cfg, microbatches, frames=False):
+    """(flash, ssd) launches of one train step: each layer's kernel once in
+    the forward and once more in its recompute, per microbatch."""
+    return tuple(2 * microbatches * n for n in prefill_launches(cfg, frames))
+
+
+def check_flash_grad(B, Sq, Skv, KV, G, hd, causal, dtype):
+    """Flash attention with its gradient on the card: the forward through
+    ops.flash_attention launches the kernel once (counted), and dq, dk, dv
+    from the plain backward are held against autograd through the naive
+    oracle on the same inputs: atol 5e-5 / rtol 5e-4 in float32, 3e-2 in
+    bf16 (the reference's bars)."""
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    rng = np.random.default_rng(SEED + 7 + B * Sq + hd)
+    q, k, v, dout = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+                     .to("cuda", dtype) for shape in ((B, Sq, KV, G, hd), (B, Skv, KV, hd),
+                                                      (B, Skv, KV, hd), (B, Sq, KV, G, hd)))
+    grads = {}
+    for name, fn in (("kernel", ops.flash_attention), ("naive", ref.attention_naive)):
+        t = [a.clone().requires_grad_() for a in (q, k, v)]
+        before = flash_attention.launches
+        out = fn(*t, causal=causal)
+        launched = flash_attention.launches - before
+        if launched != (name == "kernel"):
+            raise AssertionError(f"flash grad {(B, Sq, Skv, KV, G, hd)}: {name} forward made "
+                                 f"{launched} kernel launches")
+        out.float().backward(dout.float())
+        grads[name] = [a.grad.float().cpu().numpy() for a in t]
+    tol = dict(atol=3e-2, rtol=3e-2) if dtype == torch.bfloat16 else dict(atol=5e-5, rtol=5e-4)
+    what = f"flash grad {(B, Sq, Skv, KV, G, hd)} {dtype}"
+    for name, got, want in zip(("dq", "dk", "dv"), grads["kernel"], grads["naive"]):
+        if not np.all(np.isfinite(got)):
+            raise AssertionError(f"{what}: non-finite {name}")
+        np.testing.assert_allclose(got, want, err_msg=f"{what} {name}", **tol)
+    res = {"shape": f"({B},{Sq},{Skv},{KV},{G},{hd})", "causal": causal,
+           "dtype": str(dtype).replace("torch.", ""),
+           "max_abs_err": max(float(np.max(np.abs(g - w)))
+                              for g, w in zip(grads["kernel"], grads["naive"]))}
+    log("train-kernels", kernel="flash_attention", **res)
+    return res
+
+
+def time_flash_train(B, S, KV, G, hd, dtype):
+    """At the training shape (causal): the kernel's forward, the plain
+    backward, and scaled_dot_product_attention's forward + backward as the
+    yardstick (in its (B, H, S, hd) layout, torch.autograd.grad), each as
+    ms (CUDA events) and graph_ms (device time)."""
+    from repro_torch.kernels import ops, ref
+
+    rng = np.random.default_rng(SEED + 8)
+    q, dout = (torch.as_tensor(rng.standard_normal((B, S, KV, G, hd)), dtype=torch.float32)
+               .to("cuda", dtype) for _ in range(2))
+    k, v = (torch.as_tensor(rng.standard_normal((B, S, KV, hd)), dtype=torch.float32)
+            .to("cuda", dtype) for _ in range(2))
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v, causal=True)
+
+    def forward():
+        with torch.no_grad():
+            return ops.flash_attention(q, k, v, causal=True)
+
+    def backward():
+        return ref.flash_attention_bwd(q, k, v, out, dout, True)
+
+    H = KV * G
+    qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd).contiguous().requires_grad_()
+    kh, vh = (t.permute(0, 2, 1, 3).contiguous().requires_grad_() for t in (k, v))
+    doh = dout.permute(0, 2, 3, 1, 4).reshape(B, H, S, hd).contiguous()
+    lib_forward = sdpa(qh, kh, vh, True)
+
+    def library():
+        return torch.autograd.grad(lib_forward(), (qh, kh, vh), doh)
+
+    res = {"shape": f"({B},{S},{S},{KV},{G},{hd})", "dtype": str(dtype).replace("torch.", ""),
+           "fwd_ms": cuda_ms(forward, 50), "fwd_graph_ms": graph_ms(forward),
+           "bwd_plain_ms": cuda_ms(backward, 20), "bwd_plain_graph_ms": graph_ms(backward),
+           "library_fwd_bwd_ms": cuda_ms(library, 50),
+           "library_fwd_bwd_graph_ms": graph_ms(library)}
+    res["fwd_bwd_graph_ms"] = res["fwd_graph_ms"] + res["bwd_plain_graph_ms"]
+    res["bound_ms"], res["bound_by"] = flash_bound_ms(B, S, S, KV, G, hd, True, dtype)
+    log("train-kernels", kernel="flash_attention", timed="training shape", **res)
+    return res
+
+
+def check_ssd_grad(B, S, H, P, N, chunk):
+    """ops.ssd_chunks' gradients (y and the final state summed with fixed
+    weights) through the kernel route against the plain route on the same
+    inputs: within 2e-4 of each input's max |grad|. Times of the kernel's
+    forward (ms and graph_ms) and of the plain backward (the chunk step
+    recomputed and differentiated; ms only: the autograd engine's stream
+    synchronisation breaks a CUDA graph capture of it)."""
+    from repro_torch.kernels import ops, ref, ssd
+
+    rng = np.random.default_rng(SEED + 9 + B * S + P)
+    arrays = (rng.standard_normal((B, S, H, P)), 0.5 * rng.standard_normal((B, S, N)),
+              0.5 * rng.standard_normal((B, S, N)),
+              -np.logaddexp(rng.standard_normal((B, S, H)), 0.0))
+    x, bm, cm, da = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in arrays)
+    wy = torch.as_tensor(rng.standard_normal((B, S, H, P)), dtype=torch.float32, device="cuda")
+    ws = torch.as_tensor(rng.standard_normal((B, H, P, N)), dtype=torch.float32, device="cuda")
+    grads = {}
+    for backend in ("auto", "reference"):
+        t = [a.clone().requires_grad_() for a in (x, bm, cm, da)]
+        before = ssd.launches
+        y, final = ops.ssd_chunks(*t, chunk=chunk, backend=backend)
+        if ssd.launches - before != (backend == "auto"):
+            raise AssertionError(f"ssd grad: the {backend} route made {ssd.launches - before} "
+                                 "kernel launches")
+        ((y * wy).sum() + (final * ws).sum()).backward()
+        grads[backend] = [a.grad for a in t]
+    gaps = {}
+    for name, got, want in zip(("x", "B", "C", "da"), grads["auto"], grads["reference"]):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"ssd grad: non-finite d{name}")
+        gaps[name] = float((got - want).abs().max() / want.abs().max())
+        if not gaps[name] < 2e-4:
+            raise AssertionError(f"ssd grad {(B, S, H, P, N, chunk)}: d{name} off the plain "
+                                 f"route's by {gaps[name]} of its max (> 2e-4)")
+    Q = min(chunk, S)
+    inputs = [a.detach().requires_grad_() for a in (x, bm, cm, da)]
+    outs = ref.ssd_chunk_plain(*inputs, Q)
+    upstream = [torch.ones_like(o) for o in outs]
+
+    def backward():
+        with torch.enable_grad():
+            return torch.autograd.grad(ref.ssd_chunk_plain(*inputs, Q), inputs, upstream)
+
+    def forward():
+        return ssd.ssd_chunk_fwd(x, bm, cm, da, chunk=Q)
+
+    res = {"shape": f"({B},{S},{H},{P},{N},{chunk})", "rel_grad_gaps": gaps,
+           "fwd_ms": cuda_ms(forward, 20), "fwd_graph_ms": graph_ms(forward),
+           "bwd_plain_ms": cuda_ms(backward, 5, warmup=1)}
+    res["bound_ms"], res["bound_by"] = ssd_bound_ms(B, S, H, P, N, Q)
+    log("train-kernels", kernel="ssd_chunk", **res)
+    return res
+
+
+def train_reduced(name, entry, setup):
+    """One golden entry trained on the card through the kernels (float32),
+    a MoE model on the reference's expert ids (the entry's routes): per
+    step, loss within rtol 1e-4 and grad_norm within 1e-3 of the JAX
+    reference's, and the kernel launches the steps imply. A MoE model is
+    also trained with its routing free, and that run's largest loss gap is
+    reported (a near-tie top-k choice can fall the other way). Returns the
+    (flash, ssd) launches of the held run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd
+
+    cfg = get_config(entry["arch"]).reduced()
+    before = flash_attention.launches, ssd.launches
+    curve = train_curve(cfg, setup, "cuda", routes=entry.get("routes"))
+    launches = flash_attention.launches - before[0], ssd.launches - before[1]
+    want = tuple(n * setup["steps"] for n in train_launches(cfg, setup["microbatches"],
+                                                            frames=cfg.family == "audio"))
+    if launches != want:
+        raise AssertionError(f"{name}: (flash, ssd) launches {launches} != {want}")
+    loss, gnorm = (np.array(c) for c in zip(*curve))
+    loss_err = np.abs(loss - entry["loss"]) / np.abs(entry["loss"])
+    gnorm_err = np.abs(gnorm - entry["grad_norm"]) / np.abs(entry["grad_norm"])
+    if not (np.all(np.isfinite(loss)) and loss_err.max() < 1e-4 and gnorm_err.max() < 1e-3):
+        raise AssertionError(f"{name}: losses {loss.tolist()} / grad norms {gnorm.tolist()} off "
+                             f"the reference's {entry['loss']} / {entry['grad_norm']}")
+    free = {}
+    if entry.get("routes"):
+        free_loss = np.array([c[0] for c in train_curve(cfg, setup, "cuda")])
+        free["free_routes_loss_max_rel_err"] = float(
+            (np.abs(free_loss - entry["loss"]) / np.abs(entry["loss"])).max())
+    log("train-reduced", case=name, family=cfg.family, steps=setup["steps"],
+        routes_held=bool(entry.get("routes")), flash_launches=launches[0],
+        ssd_launches=launches[1], loss_first=float(loss[0]), loss_last=float(loss[-1]),
+        loss_max_rel_err=float(loss_err.max()), grad_norm_max_rel_err=float(gnorm_err.max()),
+        **free)
+    return launches
+
+
+def check_recovery(arch="gemma-2b"):
+    """The Trainer on the card (reduced ``arch``, float32): a run that
+    crashes at step 6 and resumes from the checkpoint of step 4 ends with the
+    parameters of an uninterrupted 12-step run, within atol 1e-6 (the
+    reference's test)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import Runtime
+    from repro_torch.train.loop import Trainer, TrainerConfig, run_with_recovery
+
+    cfg = get_config(arch).reduced()
+    rt = Runtime("cuda", torch.float32, "auto")
+    with tempfile.TemporaryDirectory() as tmp:
+        def tcfg(sub):
+            return TrainerConfig(seq_len=16, global_batch=4, steps=12, ckpt_every=4,
+                                 ckpt_dir=str(Path(tmp) / sub), seed=SEED, log_every=1)
+
+        ref = Trainer(cfg, tcfg("ref"), rt)
+        ref.init_or_restore()
+        ref.run()
+        _, restarts = run_with_recovery(lambda: Trainer(cfg, tcfg("rec"), rt), total_steps=12,
+                                        fail_at=6)
+        rec = Trainer(cfg, tcfg("rec"), rt)
+        step = rec.init_or_restore()
+    if restarts != 1 or step != 12:
+        raise AssertionError(f"recovery: {restarts} restarts, resumed at step {step}")
+    err = max(float((a.detach() - b.detach()).abs().max())
+              for a, b in zip(ref.params.parameters(), rec.params.parameters()))
+    if not err <= 1e-6:
+        raise AssertionError(f"recovery: recovered parameters off the uninterrupted run's by {err}")
+    log("train-reduced", case=f"{arch} recovery", restarts=restarts, resumed_at=step,
+        params_max_abs_err=err)
+
+
+def profile_step(fn):
+    """Device time of one call of ``fn`` (a train step) from a torch.profiler
+    trace: the busy time (sum of kernel times), the hand-written forward
+    kernels' time (flash_fwd*, ssd_chunk_kernel*) and the time of the
+    kernels launched inside the two backwards' profiler ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    spans = (ops.FLASH_BWD_RANGE, ops.SSD_BWD_RANGE)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in spans]
+
+    def ms(es):
+        return sum(e.time_range.elapsed_us() for e in es) / 1e3
+
+    in_span = dict.fromkeys(spans, 0.0)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        node = e
+        while node is not None and node.name not in in_span:
+            node = node.cpu_parent
+        if node is not None:
+            in_span[node.name] += sum(k.duration for k in e.kernels) / 1e3
+    busy = ms(kernels)
+    return {"profiled_wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "device_idle_share": 1.0 - busy / (1e3 * wall), "device_kernels": len(kernels),
+            "flash_fwd_device_ms": ms(e for e in kernels if "flash_fwd" in e.name),
+            "flash_bwd_device_ms": in_span[ops.FLASH_BWD_RANGE],
+            "ssd_fwd_device_ms": ms(e for e in kernels if "ssd_chunk_kernel" in e.name),
+            "ssd_bwd_device_ms": in_span[ops.SSD_BWD_RANGE]}
+
+
+def grad_gap(lm, cfg, batch, want_launches):
+    """One microbatch's loss and gradients through the kernels ("auto") and
+    through the plain forwards ("reference", the same plain backwards) on the
+    same weights, in bf16 compute (the gated comparison) and in float32
+    compute (the kernels' own part of the gap); and the plain route's bf16
+    gradients against its float32 ones (the rounding of a bf16 backward,
+    which any change of the forward's last bits decorrelates). Returns
+    {"loss_rel_gap_vs_plain", "grad_rel_l2_gap_vs_plain" (bf16),
+    "grad_rel_l2_gap_vs_plain_f32", "plain_grad_rel_l2_gap_bf16_vs_f32"};
+    the auto bf16 run's (flash, ssd)
+    launches must be ``want_launches``. Relative L2 gaps are global: the
+    norm of the difference over the norm of the second's gradient."""
+    from repro_torch.kernels import flash_attention, ssd
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import lm_loss
+
+    def run(backend, dtype):
+        lm.zero_grad(set_to_none=True)
+        before = flash_attention.launches, ssd.launches
+        loss, _ = lm_loss(lm, cfg, Runtime("cuda", dtype, backend), batch["tokens"],
+                          batch["labels"])
+        loss.backward()
+        launches = flash_attention.launches - before[0], ssd.launches - before[1]
+        if (backend, dtype) == ("auto", torch.bfloat16) and launches != want_launches:
+            raise AssertionError(f"{cfg.name}: (flash, ssd) launches {launches} in one "
+                                 f"microbatch, {want_launches} expected")
+        grads = {n: p.grad for n, p in lm.named_parameters()}
+        lm.zero_grad(set_to_none=True)
+        return float(loss.detach()), grads
+
+    def rel_l2(got, want):
+        diff = sum(float(((got[n] - want[n]).double() ** 2).sum()) for n in want)
+        return (diff / sum(float((want[n].double() ** 2).sum()) for n in want)) ** 0.5
+
+    loss_ref, ref_bf16 = run("reference", torch.bfloat16)
+    loss_auto, auto = run("auto", torch.bfloat16)
+    out = {"loss_rel_gap_vs_plain": abs(loss_auto - loss_ref) / abs(loss_ref),
+           "grad_rel_l2_gap_vs_plain": rel_l2(auto, ref_bf16)}
+    del auto
+    _, ref_f32 = run("reference", torch.float32)
+    out["plain_grad_rel_l2_gap_bf16_vs_f32"] = rel_l2(ref_bf16, ref_f32)
+    del ref_bf16
+    out["grad_rel_l2_gap_vs_plain_f32"] = rel_l2(run("auto", torch.float32)[1], ref_f32)
+    return out
+
+
+def train_full(arch, batch_size, seq_len, phase):
+    """``arch`` trained at full width and depth on the card: float32
+    parameters and the optimizer of for_config, bf16 compute through the
+    kernels, B ``batch_size`` x S ``seq_len`` in the config's microbatches,
+    TRAIN_STEPS steps on SyntheticTokens. Checks: every loss finite, the last
+    below the first, each step's kernel launches; one microbatch through the
+    kernels against the plain forwards (loss within 1e-2 relative, global
+    relative L2 gradient gap within 3e-2; the gaps in float32 compute and of
+    the plain route's bf16 gradients from its float32 ones printed beside
+    it). Prints step times, tokens/s, peak
+    memory and, from a profiled extra step, the kernels' forward and the
+    plain backwards' share of a step's device time. Returns the launches of
+    the TRAIN_STEPS steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticTokens
+    from repro_torch.kernels import flash_attention, ssd
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import init_params
+    from repro_torch.train.optimizer import for_config
+    from repro_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    held_gb = free_card() / 1e9
+    cfg = get_config(arch)
+    mb = cfg.microbatches
+    t0 = time.perf_counter()
+    lm = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), torch.float32,
+                     "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    if n_params != realized_params(cfg):
+        raise AssertionError(f"{arch}: {n_params} parameters != {realized_params(cfg)}")
+    data = SyntheticTokens(cfg.vocab, seq_len, batch_size, seed=SEED)
+
+    def device_batch(step, rows=None):
+        return {k: torch.as_tensor(v[:rows], device="cuda") for k, v in data.batch(step).items()}
+
+    per_step = train_launches(cfg, mb)
+    gaps = grad_gap(lm, cfg, device_batch(0, batch_size // mb), tuple(n // mb for n in per_step))
+    if not (gaps["loss_rel_gap_vs_plain"] < 1e-2 and gaps["grad_rel_l2_gap_vs_plain"] < 3e-2):
+        raise AssertionError(f"{arch}: kernel route off the plain forwards: {gaps}")
+    free_card()
+
+    opt = for_config(cfg)
+    state = opt.init(dict(lm.named_parameters()))
+    step_fn = make_train_step(cfg, Runtime("cuda", torch.bfloat16, "auto"), opt)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches = [], [], (0, 0)
+    for step in range(TRAIN_STEPS):
+        batch = device_batch(step)
+        before = flash_attention.launches, ssd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm, state, metrics = step_fn(lm, state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got = flash_attention.launches - before[0], ssd.launches - before[1]
+        if got != per_step:
+            raise AssertionError(f"{arch} step {step}: (flash, ssd) launches {got} != "
+                                 f"{per_step}")
+        launches = (launches[0] + got[0], launches[1] + got[1])
+    peak = torch.cuda.max_memory_allocated()
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: losses {losses}")
+    batch = device_batch(TRAIN_STEPS)
+    prof = profile_step(lambda: step_fn(lm, state, batch))
+    steady_ms = float(np.median(step_ms[1:]))
+    shares = {}
+    for kname, fwd, bwd in (("flash", "flash_fwd_device_ms", "flash_bwd_device_ms"),
+                            ("ssd", "ssd_fwd_device_ms", "ssd_bwd_device_ms")):
+        if prof[fwd]:
+            shares[f"{kname}_fwd_share_of_device"] = prof[fwd] / prof["device_busy_ms"]
+            shares[f"{kname}_bwd_share_of_device"] = prof[bwd] / prof["device_busy_ms"]
+    log(phase, arch=arch, params=n_params, init_s=init_s, held_before_gb=held_gb,
+        batch=batch_size, seq_len=seq_len, microbatches=mb, optimizer=opt.name,
+        steps=TRAIN_STEPS, losses=[round(x, 5) for x in losses], step_ms=step_ms,
+        steady_step_ms=steady_ms, tokens_per_s=batch_size * seq_len / (steady_ms / 1e3),
+        flash_launches_per_step=per_step[0], ssd_launches_per_step=per_step[1],
+        max_memory_allocated_gb=peak / 1e9, **gaps, **prof, **shares,
+        phase_wall_s=time.perf_counter() - t_phase)
+    return {"launches": launches, "launches_per_step": per_step, "steady_step_ms": steady_ms,
+            "peak_gb": peak / 1e9, **gaps, **prof}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
@@ -922,6 +1408,7 @@ def main() -> int:
 
     golden = json.loads(GOLDEN.read_text())
     serve_golden = json.loads(SERVE_GOLDEN.read_text())
+    train_golden = json.loads(TRAIN_GOLDEN.read_text())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1011,25 +1498,50 @@ def main() -> int:
         check_ssd(*shape)
     log("ssd", library_equivalent="none (no single PyTorch call computes the chunked SSD)")
 
-    # 8. reduced serving against the JAX Engine's results
-    for case, entry in serve_golden["entries"].items():
-        serve_reduced(case, entry, serve_golden["setup"])
+    # 8-12 serve: no autograd graph (the parameters are trainable)
+    with torch.inference_mode():
+        # 8. reduced serving against the JAX Engine's results
+        for case, entry in serve_golden["entries"].items():
+            serve_reduced(case, entry, serve_golden["setup"])
 
-    # 9. gemma-2b at full width: the serving path, counted from zero
-    flash_launches = serve_full(FULL_ARCH, flash_attention, flash_path, "gemma")
-    if flash_launches == 0:
-        raise AssertionError("the serving path never launched the flash kernel")
+        # 9. gemma-2b at full width: the serving path, counted from zero
+        flash_launches = serve_full(FULL_ARCH, flash_attention, flash_path, "gemma")
+        if flash_launches == 0:
+            raise AssertionError("the serving path never launched the flash kernel")
 
-    # 10. mamba2-130m at full width: its serving path, counted from zero
-    ssd_launches = serve_full(SSM_ARCH, ssd, ssd_path, "mamba")
-    if ssd_launches == 0:
-        raise AssertionError("the mamba serving path never launched the ssd kernel")
+        # 10. mamba2-130m at full width: its serving path, counted from zero
+        ssd_launches = serve_full(SSM_ARCH, ssd, ssd_path, "mamba")
+        if ssd_launches == 0:
+            raise AssertionError("the mamba serving path never launched the ssd kernel")
 
-    # 11. moonshot-v1-16b-a3b at full width: its serving path, counted from zero
-    moe_launches = serve_moe_full()
+        # 11. moonshot-v1-16b-a3b at full width: its serving path, counted from zero
+        moe_launches = serve_moe_full()
 
-    # 12. seamless-m4t-large-v2 at full width through the serving steps
-    audio_launches = serve_audio_full()
+        # 12. seamless-m4t-large-v2 at full width through the serving steps
+        audio_launches = serve_audio_full()
+
+    # 13. the kernels with their gradients, on the card freed of the models
+    t_phase = time.perf_counter()
+    free_card()
+    flash_grads = [check_flash_grad(*shape, dtype) for dtype in (torch.float32, torch.bfloat16)
+                   for shape in (FLASH_TRAIN, *FLASH_GRAD_CASES)]
+    flash_train = time_flash_train(*FLASH_TRAIN[:2], *FLASH_TRAIN[3:6], torch.bfloat16)
+    ssd_train = check_ssd_grad(*SSD_TRAIN)
+    log("train-kernels", phase_wall_s=time.perf_counter() - t_phase)
+
+    # 14. reduced models trained on the card against the JAX reference's run
+    t_phase = time.perf_counter()
+    for case, entry in train_golden["entries"].items():
+        train_reduced(case, entry, train_golden["setup"])
+    check_recovery()
+    log("train-reduced", phase_wall_s=time.perf_counter() - t_phase)
+
+    # 15-16. gemma-2b and mamba2-130m trained at full width, counted from zero
+    flash_attention.launches = ssd.launches = 0
+    gemma_train = train_full(FULL_ARCH, *GEMMA_TRAIN, "gemma-train")
+    mamba_train = train_full(SSM_ARCH, *MAMBA_TRAIN, "mamba-train")
+    if gemma_train["launches"][0] == 0 or mamba_train["launches"][1] == 0:
+        raise AssertionError("the training path never launched the flash or the ssd kernel")
 
     print(smi, flush=True)
     timed_keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms",
@@ -1056,12 +1568,23 @@ def main() -> int:
         "seamless": {"launches": audio_launches,
                      **{name: {key: res[key] for key in timed_keys}
                         for name, res in audio_flash.items()}},
+        "training": {"launches": gemma_train["launches"][0],
+                     "launches_per_step": gemma_train["launches_per_step"][0],
+                     "grad_max_abs_err": max(r["max_abs_err"] for r in flash_grads),
+                     "fwd_device_ms_per_step": gemma_train["flash_fwd_device_ms"],
+                     "bwd_device_ms_per_step": gemma_train["flash_bwd_device_ms"],
+                     "step_device_busy_ms": gemma_train["device_busy_ms"], **flash_train},
     }, {
         "name": "ssd_chunk", "route": "cuda", "source": SSD_SOURCE, "replaces": SSD_REPLACES,
         "launches": ssd_launches, "max_abs_err": ssd_path["max_abs_err"],
         "ms": ssd_path["ms"], "graph_ms": ssd_path["graph_ms"], "plain_ms": ssd_path["plain_ms"],
         "bound_ms": ssd_path["bound_ms"], "bound_by": ssd_path["bound_by"],
         "library_ms": None,
+        "training": {"launches": mamba_train["launches"][1],
+                     "launches_per_step": mamba_train["launches_per_step"][1],
+                     "fwd_device_ms_per_step": mamba_train["ssd_fwd_device_ms"],
+                     "bwd_device_ms_per_step": mamba_train["ssd_bwd_device_ms"],
+                     "step_device_busy_ms": mamba_train["device_busy_ms"], **ssd_train},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}), flush=True)

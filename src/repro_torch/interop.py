@@ -5,7 +5,8 @@ the allocation. These helpers build the port's objects from NumPy arrays or
 Python numbers (whatever produced them) and flatten an Allocation back into
 arrays, so two implementations can be compared on the same instance. For the
 model substrate, ``numpy_params`` draws a parameter tree in the reference's
-layout and ``params_from_jax`` loads such a tree into the port's ``LM``.
+layout, ``params_from_jax`` loads such a tree into the port's ``LM`` and
+``params_to_jax`` turns an ``LM``'s parameters back into that layout.
 """
 from __future__ import annotations
 
@@ -145,6 +146,56 @@ def numpy_params(cfg, seed: int) -> dict:
     return tree
 
 
+def _leaf_places(lm, cfg):
+    """(parameter, path in the reference's tree, stage repeats or None, repeat
+    index or None) of every parameter of ``lm``; a stage leaf is the
+    parameter's row ``r`` of the tree's stacked ``(repeats, ...)`` leaf."""
+    places = [(lm.embed, ("embed",), None, None), (lm.final_norm.w, ("final_norm", "w"), None, None)]
+    if not cfg.tie_embeddings:
+        places.append((lm.lm_head, ("lm_head",), None, None))
+    stage_layers = [(f"stage{si}", r, cfg.stages()[si].repeat, layer)
+                    for layer, (si, r) in zip(lm.layers, lm.stage_of)]
+    if cfg.family == "audio":
+        stage_layers += [("encoder", r, cfg.enc_layers, layer)
+                         for r, layer in enumerate(lm.encoder)]
+        places.append((lm.enc_norm.w, ("enc_norm", "w"), None, None))
+    if cfg.family == "vlm":
+        places.append((lm.vision_proj, ("vision_proj",), None, None))
+    for tree_key, r, repeats, layer in stage_layers:
+        for i, block in enumerate(layer):
+            key = (tree_key, f"b{i}")
+            places.append((block.norm.w, key + ("norm", "w"), repeats, r))
+            for group, shapes in _block_shapes(block.kind, cfg).items():
+                for name in shapes:
+                    places.append((getattr(getattr(block, group), name), key + (group, name),
+                                   repeats, r))
+    return places
+
+
+def params_to_jax(lm, cfg, values=None) -> dict:
+    """The parameters of ``lm`` as a tree in the reference's layout (stage
+    leaves stacked ``(repeat, ...)``), float32 NumPy arrays: the inverse of
+    ``params_from_jax``, so that updated parameters can be compared with the
+    reference's leaf by leaf. ``values``, a dict keyed by parameter name
+    (``lm.named_parameters()``; an optimizer's moments, say), is laid out in
+    their place."""
+    tree: dict = {}
+    stacks: dict = {}
+    names = {id(p): name for name, p in lm.named_parameters()}
+    for param, path, repeats, r in _leaf_places(lm, cfg):
+        value = param if values is None else values[names[id(param)]]
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if repeats is not None:
+            stack = stacks.setdefault(path, np.zeros((repeats, *arr.shape), np.float32))
+            stack[r] = arr
+            arr = stack
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
+
+
 def params_from_jax(tree, cfg, device=None, dtype=torch.float32):
     """An ``LM`` on ``device`` (the CUDA device unless named) holding the
     reference's parameter tree ``tree`` (leaves as NumPy arrays, or anything
@@ -167,28 +218,12 @@ def params_from_jax(tree, cfg, device=None, dtype=torch.float32):
             raise ValueError(f"params_from_jax: {'/'.join(path)} has shape {arr.shape}, "
                              f"expected {want}")
         arr = arr if r is None else arr[r]
-        param.copy_(torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.float32))
+        with torch.no_grad():
+            param.copy_(torch.as_tensor(np.ascontiguousarray(arr), dtype=torch.float32))
         seen.add("/".join(path))
 
-    put(lm.embed, ("embed",))
-    put(lm.final_norm.w, ("final_norm", "w"))
-    if not cfg.tie_embeddings:
-        put(lm.lm_head, ("lm_head",))
-    stage_layers = [(f"stage{si}", r, cfg.stages()[si].repeat, layer)
-                    for layer, (si, r) in zip(lm.layers, lm.stage_of)]
-    if cfg.family == "audio":
-        stage_layers += [("encoder", r, cfg.enc_layers, layer)
-                         for r, layer in enumerate(lm.encoder)]
-        put(lm.enc_norm.w, ("enc_norm", "w"))
-    if cfg.family == "vlm":
-        put(lm.vision_proj, ("vision_proj",))
-    for tree_key, r, repeats, layer in stage_layers:
-        for i, block in enumerate(layer):
-            key = (tree_key, f"b{i}")
-            put(block.norm.w, key + ("norm", "w"), repeats, r)
-            for group, shapes in _block_shapes(block.kind, cfg).items():
-                for name in shapes:
-                    put(getattr(getattr(block, group), name), key + (group, name), repeats, r)
+    for param, path, repeats, r in _leaf_places(lm, cfg):
+        put(param, path, repeats, r)
 
     def leaves(node, prefix=()):
         if isinstance(node, dict):

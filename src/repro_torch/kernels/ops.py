@@ -7,6 +7,14 @@ backend:
   'reference' — crms_grid: the float64 oracle; flash_attention and
                 ssd_chunks: the plain version (ref.py), on whatever device
                 the tensors are
+
+flash_attention and ssd_chunks are differentiable: their forward is the
+kernel (or its plain version) as above, inside a ``torch.autograd.Function``
+whose backward is plain torch, as the reference's gradients are jnp (it has
+no backward Pallas kernel). Attention's backward is the reference's
+blockwise recompute (``ref.flash_attention_bwd``); the SSD chunk step's
+recomputes ``ref.ssd_chunk_plain`` under autograd, as the reference
+differentiates its einsum oracle.
 """
 from __future__ import annotations
 
@@ -15,6 +23,10 @@ import torch
 from repro_torch.kernels import ref as _ref
 
 F32 = torch.float32
+# profiler ranges around the two backwards (torch.profiler traces attribute
+# the device time of the kernels launched inside them)
+FLASH_BWD_RANGE = "flash_attention_bwd"
+SSD_BWD_RANGE = "ssd_chunk_bwd"
 
 
 # ----------------------------------------------------------------------------
@@ -42,20 +54,73 @@ def crms_grid(kappa, lam, xbar, n, c, m, *, caps_cpu, power_span, alpha, beta,
 # ----------------------------------------------------------------------------
 # flash attention — q (B,Sq,KV,G,hd), k/v (B,Skv,KV,hd); see flash_attention.py
 # ----------------------------------------------------------------------------
+class FlashAttention(torch.autograd.Function):
+    """Attention with a gradient: the forward is the CUDA kernel on CUDA
+    tensors with ``backend="auto"``, else the plain version; the backward is
+    ``ref.flash_attention_bwd`` at blocks of ``qb`` query rows and ``kb`` keys
+    (the reference's 512 / 1024 by default), from the saved q, k, v and
+    output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, backend, qb, kb):
+        if backend == "auto" and q.is_cuda:
+            from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+            out = flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                                      causal=causal)
+        else:
+            out = _ref.flash_attention_plain(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.qb, ctx.kb = causal, qb, kb
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        with torch.profiler.record_function(FLASH_BWD_RANGE):
+            dq, dk, dv = _ref.flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.qb, ctx.kb)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = True, backend: str = "auto"):
     if backend not in ("auto", "reference"):
         raise ValueError(f"backend must be 'auto' or 'reference', got {backend!r}")
-    if backend == "auto" and q.is_cuda:
-        from repro_torch.kernels.flash_attention import flash_attention_fwd
-
-        return flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                   causal=causal)
-    return _ref.flash_attention_plain(q, k, v, causal)
+    return FlashAttention.apply(q, k, v, causal, backend, _ref.DEFAULT_QB, _ref.DEFAULT_KB)
 
 
 # ----------------------------------------------------------------------------
 # SSD chunk scan — xh (B,S,H,P), bmat/cmat (B,S,N), da (B,S,H); see ssd.py
 # ----------------------------------------------------------------------------
+class SSDChunk(torch.autograd.Function):
+    """The SSD intra-chunk step with a gradient: the forward is the CUDA
+    kernel on CUDA tensors with ``backend="auto"``, else the plain version,
+    returning y_diag, the chunk states and the chunks' cumsum of da; the
+    backward recomputes ``ref.ssd_chunk_plain`` from the saved inputs under
+    autograd and returns its gradient (the reference differentiates its
+    einsum oracle)."""
+
+    @staticmethod
+    def forward(ctx, x, bmat, cmat, da, chunk, backend):
+        if backend == "auto" and x.is_cuda:
+            from repro_torch.kernels.ssd import ssd_chunk_fwd
+
+            outs = ssd_chunk_fwd(x, bmat, cmat, da, chunk=chunk)
+        else:
+            outs = _ref.ssd_chunk_plain(x, bmat, cmat, da, chunk)
+        ctx.save_for_backward(x, bmat, cmat, da)
+        ctx.chunk = chunk
+        return outs
+
+    @staticmethod
+    def backward(ctx, d_y, d_states, d_cum):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.profiler.record_function(SSD_BWD_RANGE), torch.enable_grad():
+            outs = _ref.ssd_chunk_plain(*inputs, ctx.chunk)
+            grads = torch.autograd.grad(outs, inputs, (d_y, d_states, d_cum), allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]
+        return (*grads, None, None)
+
+
 def ssd_chunks(xh, bmat, cmat, da, chunk: int = 128, backend: str = "auto"):
     """Chunked SSD scan in float32 with chunks of Q = min(chunk, S): the
     intra-chunk step (y_diag, chunk states and the chunks' cumsum of da)
@@ -74,12 +139,7 @@ def ssd_chunks(xh, bmat, cmat, da, chunk: int = 128, backend: str = "auto"):
         raise ValueError(f"ssd_chunks: sequence length {S} is not a multiple of the chunk {Q}")
     nc = S // Q
     xh, bmat, cmat, da = (t.to(F32).contiguous() for t in (xh, bmat, cmat, da))
-    if backend == "auto" and xh.is_cuda:
-        from repro_torch.kernels.ssd import ssd_chunk_fwd
-
-        y_diag, states, cum = ssd_chunk_fwd(xh, bmat, cmat, da, chunk=Q)
-    else:
-        y_diag, states, cum = _ref.ssd_chunk_plain(xh, bmat, cmat, da, Q)
+    y_diag, states, cum = SSDChunk.apply(xh, bmat, cmat, da, Q, backend)
     # inter-chunk recurrence + off-diagonal contribution (tiny, plain torch),
     # on the chunk step's own cumsum of da
     da_cum = cum.reshape(B, nc, Q, H)

@@ -8,7 +8,10 @@ CPU path of ``ops.crms_grid`` runs it and the tests hold the kernel to it.
 
 ``flash_attention_plain`` is the flash kernel's plain version (the same
 tiles, masks, online softmax and finalisation, in float32);
-``attention_naive`` is the O(S²)-memory oracle.
+``attention_naive`` is the O(S²)-memory oracle. ``flash_attention_bwd`` is
+the gradient of attention, the reference's blockwise recompute
+(``repro/kernels/ref.py::_flash_bwd``) with its log-sum-exp recomputed by
+``flash_lse`` (the reference's ``_fwd_streaming``).
 
 ``tf32_rna`` and ``tf32_einsum`` repeat the kernels' TF32 rounding and
 error-compensated TF32 products (the float32 flash and SSD kernels), for the
@@ -203,6 +206,84 @@ def flash_attention_plain(q, k, v, causal: bool = True, qb: int = 32, kb: int = 
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
+DEFAULT_QB = 512  # the reference's query and key blocks of its blockwise backward
+DEFAULT_KB = 1024
+
+
+def _tile_scores(q_i, k_j, q0: int, k0: int, causal: bool, scale: float):
+    """Scaled float32 scores (B, KV, G, qb, kb) of a (query block, key block)
+    tile and its mask (top-left causal where ``causal``)."""
+    s = torch.einsum("bqkgh,btkh->bkgqt", q_i, k_j) * scale
+    q_pos = torch.arange(q0, q0 + q_i.shape[1], device=s.device)[:, None]
+    k_pos = torch.arange(k0, k0 + k_j.shape[1], device=s.device)[None, :]
+    mask = q_pos >= k_pos if causal else torch.ones_like(q_pos >= k_pos)
+    return s, mask
+
+
+def flash_lse(q, k, causal: bool = True, qb: int = DEFAULT_QB, kb: int = DEFAULT_KB):
+    """float32 log-sum-exp of each query row's scaled, masked scores, (B, KV,
+    G, Sq): the reference's ``_fwd_streaming`` (``m + log(max(l, 1e-30))``,
+    m and l streamed over tiles of ``kb`` keys for blocks of ``qb`` rows)."""
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    scale = hd**-0.5
+    qb, kb = min(qb, Sq), min(kb, Skv)
+    qf, kf = q.to(F32), k.to(F32)
+    lse = torch.empty((B, KV, G, Sq), dtype=F32, device=q.device)
+    for q0 in range(0, Sq, qb):
+        q_i = qf[:, q0:q0 + qb]
+        m = torch.full((B, KV, G, q_i.shape[1]), -torch.inf, dtype=F32, device=q.device)
+        l = torch.zeros_like(m)
+        for k0 in range(0, Skv, kb):
+            s, mask = _tile_scores(q_i, kf[:, k0:k0 + kb], q0, k0, causal, scale)
+            s = torch.where(mask, s, -torch.inf)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(torch.isfinite(s), torch.exp(s - m_safe[..., None]), 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + p.sum(dim=-1)
+            m = m_new
+        lse[..., q0:q0 + qb] = m + torch.log(torch.clamp(l, min=1e-30))
+    return lse
+
+
+def flash_attention_bwd(q, k, v, out, dout, causal: bool = True, qb: int = DEFAULT_QB,
+                        kb: int = DEFAULT_KB):
+    """Gradient of attention, the reference's ``_flash_bwd``: the log-sum-exp
+    recomputed (``flash_lse``), ``D = rowsum(dout · out)``, and per (block of
+    ``qb`` query rows, block of ``kb`` keys) tile ``p = exp(s - lse)`` on the
+    mask (top-left causal where ``causal``), ``ds = p (dout vᵀ - D) ·
+    scale``, dq += ds k, dv += pᵀ dout and dk += dsᵀ q, dk and dv summed over
+    the G query heads of their kv head. The reference streams dq in one pass
+    and dk/dv in a second over the same tiles; one loop recomputes each
+    tile's p once and takes every sum in the reference's order (dq over key
+    blocks, dk and dv over query blocks, each in ascending order). float32
+    inside; q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd), out and dout in q's
+    layout; returns dq, dk, dv in the inputs' dtypes."""
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
+    scale = hd**-0.5
+    qb, kb = min(qb, Sq), min(kb, Skv)
+    qf, kf, vf, dof = (t.to(F32) for t in (q, k, v, dout))
+    lse = flash_lse(qf, kf, causal, qb, kb)
+    D = torch.einsum("bqkgh,bqkgh->bkgq", dof, out.to(F32))
+    dq = torch.zeros_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, Sq, qb):
+        q_i, do_i = qf[:, q0:q0 + qb], dof[:, q0:q0 + qb]
+        lse_i, D_i = lse[..., q0:q0 + qb, None], D[..., q0:q0 + qb, None]
+        for k0 in range(0, Skv, kb):
+            k_j, v_j = kf[:, k0:k0 + kb], vf[:, k0:k0 + kb]
+            s, mask = _tile_scores(q_i, k_j, q0, k0, causal, scale)
+            p = torch.where(mask, torch.exp(torch.where(mask, s, -torch.inf) - lse_i), 0.0)
+            dp = torch.einsum("bqkgh,btkh->bkgqt", do_i, v_j)
+            ds = p * (dp - D_i) * scale
+            dq[:, q0:q0 + qb] += torch.einsum("bkgqt,btkh->bqkgh", ds, k_j)
+            dv[:, k0:k0 + kb] += torch.einsum("bkgqt,bqkgh->btkh", p, do_i)
+            dk[:, k0:k0 + kb] += torch.einsum("bkgqt,bqkgh->btkh", ds, q_i)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def attention_naive(q, k, v, causal: bool = True):
     """O(S^2)-memory oracle (tests only): materializes the score matrix."""
     B, Sq, KV, G, hd = q.shape
@@ -264,7 +345,9 @@ def ssd_chunk_plain(x, bmat, cmat, da, chunk: int):
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, nc, Q_i, Q_j, H)
     pos = torch.arange(Q, device=x.device)
     tri = (pos[:, None] >= pos[None, :])[:, :, None]
-    L = torch.where(tri, torch.exp(seg), 0.0)
+    # exp of -inf above the diagonal (not exp(seg) masked afterwards): the
+    # same values, and a gradient of 0 there where exp(seg) may overflow
+    L = torch.exp(torch.where(tri, seg, -torch.inf))
     scores = torch.einsum("bnis,bnjs->bnij", cc, bc)
     y = torch.einsum("bnijh,bnjhp->bnihp", scores[..., None] * L, xc)
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B, nc, Q, H)

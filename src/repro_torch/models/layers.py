@@ -5,8 +5,10 @@ cross-attention (prefill and cross-attention through the flash kernel behind
 Parameters keep the reference's layouts (``repro/models/layers.py``): q/k/v
 projections (d, heads, hd), the output projection (heads, hd, d), MLP
 matrices (d, d_ff) and (d_ff, d). Compute runs in ``Runtime.compute_dtype``
-with float32 norms, RoPE angles and softmax. Parameters carry no gradients:
-this slice serves, training is a later one.
+with float32 norms, RoPE angles and softmax. Parameters are trainable
+``nn.Parameter``s: code that writes into one does so under
+``torch.no_grad()``, and the serving entry points run under
+``torch.inference_mode()`` so that a forward there builds no graph.
 """
 from __future__ import annotations
 
@@ -43,8 +45,7 @@ class Runtime:
 
 
 def _param(shape, device, dtype, fill: float = 0.0) -> nn.Parameter:
-    return nn.Parameter(torch.full(shape, fill, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.full(shape, fill, dtype=dtype, device=device))
 
 
 # ----------------------------------------------------------------------------

@@ -4,21 +4,29 @@ hybrid, ssm, vlm, audio).
 
 Entry points, as in the reference:
   init_params(cfg, generator, dtype, device)   -> LM with random weights
-  apply_lm(lm, cfg, runtime, tokens, extra)     -> logits (prefill forward), aux
+  apply_lm(lm, cfg, runtime, tokens, extra)     -> logits (train / prefill forward), aux
   init_cache(cfg, runtime, batch, max_len)      -> decode cache
   apply_decode(lm, cfg, runtime, tokens, cache, index, extra) -> logits, cache
+  lm_loss(lm, cfg, runtime, tokens, labels, extra) -> loss, {"nll", "aux"}
 
 ``extra`` holds the vlm family's ``patches`` (B, Np, d_vision), the audio
 family's ``frames`` (B, F, d) or, for either, a precomputed ``memory`` (B,
 S_src, d) (``_encode_memory``). The reference scans each stage over its
 repeat count; here every repeat is one entry of ``LM.layers`` (an
 ``nn.ModuleList`` of its blocks), and the decode cache keeps the reference's
-per-stage layout with a leading repeat axis, updated in place.
+per-stage layout with a leading repeat axis, updated in place. Where the
+reference wraps a stage's scan body in ``jax.checkpoint`` (``remat_policy``
+not ``"none"``, no cache), each layer runs under
+``torch.utils.checkpoint`` when a gradient is being recorded: its
+activations are recomputed in the backward, whatever the policy names (the
+reference's ``"dots"`` keeps its matmul outputs; the values are the same,
+memory and time differ).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, Stage
 from repro_torch.device import resolve_device
@@ -105,6 +113,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
     generator lives on the model's device."""
     lm = LM(cfg, device, param_dtype)
 
+    @torch.no_grad()
     def normal_(p, scale):
         draw = torch.randn(p.shape, generator=generator, dtype=F32, device=p.device)
         p.copy_(draw.mul_(scale))
@@ -163,6 +172,48 @@ def _apply_block(block: Block, x, cfg: ModelConfig, runtime: Runtime, *, positio
     return x + y, aux, new_cache
 
 
+def _apply_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions, memory):
+    """One stage repeat's blocks (no cache): returns (x, aux_total plus the
+    MoE blocks' aux)."""
+    for block in layer:
+        x, aux, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _remat_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions, memory):
+    """``_apply_layer`` under ``torch.utils.checkpoint``: the backward
+    recomputes the layer (launching its kernels again). The recompute records
+    no expert ids, and where the forward's MoE blocks replayed ids it replays
+    the same ones (``moe.recomputing``), so a route is recorded or replayed
+    once per forward."""
+    routes, calls, replayed = [], [0], MOE.replaying()
+
+    def run(x, aux_total, memory):
+        calls[0] += 1
+        if calls[0] > 1:
+            with MOE.recomputing(routes if replayed else None):
+                return _apply_layer(layer, x, aux_total, cfg, runtime, positions, memory)
+        with MOE.recording_routes() as ids:
+            out = _apply_layer(layer, x, aux_total, cfg, runtime, positions, memory)
+        routes.extend(ids)
+        return out
+
+    return checkpoint(run, x, aux_total, memory, use_reentrant=False)
+
+
+def _apply_layers(layers, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions,
+                  memory=None):
+    """The layers in order, each rematerialised (``_remat_layer``) where the
+    config asks for it and a gradient is being recorded."""
+    remat = cfg.remat_policy != "none" and torch.is_grad_enabled()
+    apply = _remat_layer if remat else _apply_layer
+    for layer in layers:
+        x, aux_total = apply(layer, x, aux_total, cfg, runtime, positions, memory)
+    return x, aux_total
+
+
 def _embed(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens):
     dt = runtime.compute_dtype
     x = torch.nn.functional.embedding(tokens, lm.embed).to(dt)
@@ -197,27 +248,23 @@ def _encode_memory(lm: LM, cfg: ModelConfig, runtime: Runtime, extra_inputs):
     if cfg.family == "audio":
         x = torch.as_tensor(extra_inputs["frames"], device=dev).to(dt)
         pos = torch.arange(x.shape[1], device=dev)[None, :]
-        for layer in lm.encoder:
-            for block in layer:
-                x, _, _ = _apply_block(block, x, cfg, runtime, positions=pos)
+        x, _ = _apply_layers(lm.encoder, x, torch.zeros((), dtype=F32, device=dev), cfg,
+                             runtime, pos)
         return L.apply_norm(lm.enc_norm, x, cfg)
     return None
 
 
 def apply_lm(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs=None):
-    """Full forward (prefill): tokens (B, S) -> logits (B, S, V), aux (the
-    MoE blocks' load-balance losses summed over the layers; 0 without MoE)."""
+    """Full forward (train / prefill): tokens (B, S) -> logits (B, S, V), aux
+    (the MoE blocks' load-balance losses summed over the layers; 0 without
+    MoE)."""
     tokens = _tokens(tokens, runtime)
     S = tokens.shape[1]
     x = _embed(lm, cfg, runtime, tokens)
     positions = torch.arange(S, device=x.device)[None, :]
     memory = _encode_memory(lm, cfg, runtime, extra_inputs or {})
-    aux_total = torch.zeros((), dtype=F32, device=x.device)
-    for layer in lm.layers:
-        for block in layer:
-            x, aux, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory)
-            if aux is not None:
-                aux_total = aux_total + aux
+    x, aux_total = _apply_layers(lm.layers, x, torch.zeros((), dtype=F32, device=x.device),
+                                 cfg, runtime, positions, memory)
     return _head(lm, cfg, runtime, x), aux_total
 
 
@@ -286,3 +333,20 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
             if "index" in blk:  # attention caches only; a Mamba cache has no index
                 blk["index"].fill_(index)
     return _head(lm, cfg, runtime, x), caches
+
+
+# ----------------------------------------------------------------------------
+# Loss
+# ----------------------------------------------------------------------------
+def lm_loss(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, labels, extra_inputs=None,
+            aux_coeff: float = 0.01):
+    """Mean next-token negative log-likelihood of ``labels`` (B, S) under the
+    float32 logits (logsumexp minus the gold logit), plus ``aux_coeff`` times
+    the MoE aux. Returns (loss, {"nll", "aux"})."""
+    logits, aux = apply_lm(lm, cfg, runtime, tokens, extra_inputs)
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    labels = torch.as_tensor(labels, device=logits.device).long()
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = torch.mean(lse - gold)
+    return nll + aux_coeff * aux, {"nll": nll, "aux": aux}

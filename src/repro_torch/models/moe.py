@@ -50,7 +50,9 @@ def recording_routes():
     try:
         yield sink
     finally:
-        _ROUTE_SINKS.remove(sink)
+        # by identity: list.remove would drop the first *equal* sink, another
+        # open (and equally empty) block's
+        _ROUTE_SINKS[:] = [other for other in _ROUTE_SINKS if other is not sink]
 
 
 @contextlib.contextmanager
@@ -65,6 +67,28 @@ def replaying_routes(routes):
         yield
     finally:
         _ROUTE_SOURCES.pop()
+
+
+def replaying() -> bool:
+    """Whether ``apply_moe`` takes its expert ids from a ``replaying_routes``
+    block here."""
+    return bool(_ROUTE_SOURCES)
+
+
+@contextlib.contextmanager
+def recomputing(routes=None):
+    """Inside the block no ``recording_routes`` block records expert ids, and
+    ``apply_moe`` takes them from ``routes`` where given (as
+    ``replaying_routes``): the recompute of a checkpointed layer is not
+    another forward, and it takes the route its forward took (the same
+    top-k, or the ids its forward replayed), whose gradient it gives."""
+    sinks = _ROUTE_SINKS[:]
+    _ROUTE_SINKS.clear()
+    try:
+        with replaying_routes(routes) if routes is not None else contextlib.nullcontext():
+            yield
+    finally:
+        _ROUTE_SINKS[:] = sinks
 
 
 def _capacity(n_tokens: int, k: int, E: int, cf: float) -> int:

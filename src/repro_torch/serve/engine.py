@@ -5,7 +5,8 @@ batch slots, with the reference's semantics
 ``slots``, left-padded with token 0 (no pad mask), prefilled by ``apply_lm``,
 the prompt replayed through decode steps to fill the cache, and decoded
 greedily until every request of the group has ``max_new`` tokens or the
-cache's ``max_len`` is reached. The decode step runs eagerly.
+cache's ``max_len`` is reached. The decode step runs eagerly, and the whole
+run under ``torch.inference_mode()`` (no autograd graph).
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ class Engine:
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return nxt, new_caches
 
+    @torch.inference_mode()
     def run(self, max_steps: int = 512) -> list[Request]:
         """Admit up to ``slots`` requests, prefill them as a batch, decode
         until all are done, repeat."""

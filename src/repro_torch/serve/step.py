@@ -1,5 +1,7 @@
 """Serving steps: prefill (forward, last-position logits) and decode (one
-token against a KV cache), as ``repro/serve/step.py``."""
+token against a KV cache), as ``repro/serve/step.py``. Both run under
+``torch.inference_mode()``: the parameters are trainable, and serving
+builds no autograd graph."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +12,7 @@ from repro_torch.models.model import apply_decode, apply_lm
 
 
 def make_prefill_step(cfg: ModelConfig, runtime: Runtime):
+    @torch.inference_mode()
     def prefill_step(lm, batch):
         extra = {k: v for k, v in batch.items() if k != "tokens"}
         logits, _ = apply_lm(lm, cfg, runtime, batch["tokens"], extra)
@@ -19,6 +22,7 @@ def make_prefill_step(cfg: ModelConfig, runtime: Runtime):
 
 
 def make_decode_step(cfg: ModelConfig, runtime: Runtime):
+    @torch.inference_mode()
     def decode_step(lm, batch, caches):
         extra = {k: v for k, v in batch.items() if k not in ("tokens", "index")}
         logits, new_caches = apply_decode(

@@ -227,3 +227,74 @@ def test_flash_f32_bound_counts_the_least_work_at_the_serving_shape():
     assert t_bytes == pytest.approx(0.01127, abs=5e-5) and t_bytes < ms
     bf16, by = smoke.flash_bound_ms(B, S, S, KV, G, hd, True, torch.bfloat16)
     assert by == "bytes" and bf16 == pytest.approx(t_bytes / 2, rel=1e-12)
+
+
+# --- gradients: ops.flash_attention's backward (ref.flash_attention_bwd) -----
+# against jax.grad of the reference's custom_vjp (repro/kernels/ref.py), the
+# bar of tests/test_kernels.py::test_flash_custom_vjp_grads
+GRAD_CASES = [(1, 96, 96, 2, 2, 32, True, 32, 32), (1, 70, 130, 2, 2, 32, False, 32, 32),
+              (1, 70, 130, 2, 2, 32, True, 32, 64), (1, 96, 96, 2, 2, 32, True, 512, 1024),
+              (1, 70, 130, 2, 2, 32, False, 512, 1024)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,KV,G,hd,causal,qb,kb", GRAD_CASES)
+def test_flash_grads_match_reference_custom_vjp(B, Sq, Skv, KV, G, hd, causal, qb, kb):
+    """Gradients of sum(out²) through the port's FlashAttention (the plain
+    forward on CPU tensors, the blockwise backward at blocks qb / kb) against
+    jax.grad of ref.flash_attention at the same blocks: atol 5e-5, rtol
+    5e-4. The last two cases are the default blocks, which ops.flash_attention
+    uses."""
+    import jax
+
+    q, k, v = _qkv(11 + Sq, B, Sq, Skv, KV, G, hd)
+    want = jax.grad(lambda q, k, v: (ref_ref.flash_attention(q, k, v, causal, qb, kb) ** 2).sum(),
+                    argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    t = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
+    if (qb, kb) == (ref.DEFAULT_QB, ref.DEFAULT_KB):
+        out = ops.flash_attention(*t, causal=causal)
+    else:
+        out = ops.FlashAttention.apply(*t, causal, "auto", qb, kb)
+    (out ** 2).sum().backward()
+    for got, w in zip(t, want):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(w), atol=5e-5, rtol=5e-4)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,KV,G,hd,causal,qb,kb", GRAD_CASES[:3])
+def test_flash_lse_matches_reference_streaming(B, Sq, Skv, KV, G, hd, causal, qb, kb):
+    """flash_lse, the backward's recomputed log-sum-exp, against the
+    reference's _fwd_streaming (its forward's residual) at the same blocks."""
+    q, k, v = _qkv(12 + Sq, B, Sq, Skv, KV, G, hd)
+    _, want = ref_ref._fwd_streaming(*(jnp.asarray(a) for a in (q, k, v)), causal, qb, kb)
+    got = ref.flash_lse(torch.as_tensor(q), torch.as_tensor(k), causal, qb, kb)
+    assert got.shape == (B, KV, G, Sq) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_grads_match_naive_autograd(dtype):
+    """The backward against autograd through the naive oracle, at the
+    training shape's layout cut down (MQA, G 8, hd 256, causal): the
+    reference's bars (5e-5 / 5e-4 in float32, 3e-2 in bfloat16), gradients
+    in the inputs' dtype."""
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.as_tensor(a).to(tdt) for a in _qkv(13, 2, 64, 64, 1, 8, 256))
+    dout = torch.as_tensor(np.random.default_rng(14).standard_normal(q.shape)).to(tdt)
+    grads = {}
+    for name, fn in (("flash", ops.flash_attention), ("naive", ref.attention_naive)):
+        t = [a.clone().requires_grad_() for a in (q, k, v)]
+        out = fn(*t, causal=True)
+        out.float().backward(dout.float())
+        grads[name] = [a.grad for a in t]
+    tol = dict(atol=3e-2, rtol=3e-2) if dtype == "bfloat16" else dict(atol=5e-5, rtol=5e-4)
+    for got, want in zip(grads["flash"], grads["naive"]):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **tol)
+
+
+def test_flash_backward_launches_no_kernel_on_cpu():
+    """On CPU tensors forward and backward are plain torch: no launch."""
+    q, k, v = (torch.tensor(a, requires_grad=True) for a in _qkv(15, 1, 40, 40, 1, 2, 32))
+    before = port_kernel.launches
+    ops.flash_attention(q, k, v, causal=True).sum().backward()
+    assert port_kernel.launches == before
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))

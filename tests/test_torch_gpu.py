@@ -1,7 +1,10 @@
 """Card-only tests of the port: the hand-written CUDA ``crms_grid``,
-flash-attention and SSD chunk kernels against their plain versions, and the
+flash-attention and SSD chunk kernels against their plain versions, the
 launches of the allocator path and of a prefill through them (dense, MoE
-and the audio encoder-decoder).
+and the audio encoder-decoder), and training through them: gradients from
+the plain backwards of a kernel forward (flash against autograd through the
+naive oracle at the reference's 5e-5 / 5e-4 and 3e-2, SSD against the plain
+route within 2e-4 of the max), and a train step's launches.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -290,3 +293,75 @@ def test_prefill_launches_the_ssd_kernel_once_per_layer(cuda_device):
         assert ssd_kernel.launches - before == (cfg.n_layers if backend == "auto" else 0)
     err = (logits["auto"] - logits["reference"]).abs().max() / logits["reference"].abs().max()
     assert float(err) < 1e-4
+
+
+# --- training: gradients through the kernels ---------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_grads_through_the_kernel_match_naive_autograd(cuda_device, dtype):
+    """ops.flash_attention's forward launches the kernel once and its plain
+    backward gives autograd's gradients through the naive oracle: atol 5e-5 /
+    rtol 5e-4 in float32, 3e-2 in bfloat16 (the reference's bars)."""
+    rng = np.random.default_rng(3)
+    q, k, v, dout = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32)
+                     .to(cuda_device, dtype) for s in ((2, 128, 1, 8, 256), (2, 128, 1, 256),
+                                                       (2, 128, 1, 256), (2, 128, 1, 8, 256)))
+    grads = {}
+    for name, fn in (("kernel", ops.flash_attention), ("naive", ref.attention_naive)):
+        t = [a.clone().requires_grad_() for a in (q, k, v)]
+        before = flash_kernel.launches
+        fn(*t, causal=True).float().backward(dout.float())
+        assert flash_kernel.launches - before == (name == "kernel")
+        grads[name] = [a.grad.float().cpu().numpy() for a in t]
+    tol = dict(atol=3e-2, rtol=3e-2) if dtype == torch.bfloat16 else dict(atol=5e-5, rtol=5e-4)
+    for got, want in zip(grads["kernel"], grads["naive"]):
+        np.testing.assert_allclose(got, want, **tol)
+
+
+@pytest.mark.gpu
+def test_ssd_grads_through_the_kernel_match_the_plain_route(cuda_device):
+    B, S, H, P, N, Q = 2, 512, 4, 64, 128, 256
+    rng = np.random.default_rng(4)
+    arrays = [torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (
+        rng.standard_normal((B, S, H, P)), 0.5 * rng.standard_normal((B, S, N)),
+        0.5 * rng.standard_normal((B, S, N)), -np.logaddexp(rng.standard_normal((B, S, H)), 0))]
+    w = torch.as_tensor(rng.standard_normal((B, S, H, P)), dtype=torch.float32, device=cuda_device)
+    grads = {}
+    for backend in ("auto", "reference"):
+        t = [a.clone().requires_grad_() for a in arrays]
+        before = ssd_kernel.launches
+        y, final = ops.ssd_chunks(*t, chunk=Q, backend=backend)
+        ((y * w).sum() + final.sum()).backward()
+        assert ssd_kernel.launches - before == (backend == "auto")
+        grads[backend] = [a.grad for a in t]
+    for got, want in zip(grads["auto"], grads["reference"]):
+        assert float((got - want).abs().max() / want.abs().max()) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-130m"])
+def test_train_step_launches_each_kernel_twice_per_layer(cuda_device, arch):
+    """A train step of two microbatches launches each layer's kernel in the
+    forward and again in its recompute, and its loss and gradient norm are
+    the plain route's within 1e-4."""
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(arch).reduced()
+    kernel = flash_kernel if arch == "gemma-2b" else ssd_kernel
+    batch = {k: torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab, (4, 64)),
+                                device=cuda_device) for k in ("tokens", "labels")}
+    metrics = {}
+    for backend in ("auto", "reference"):
+        lm = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                         device=cuda_device)
+        opt = adamw(lr=1e-3)
+        step = make_train_step(cfg, Runtime(cuda_device, torch.float32, backend), opt, 2)
+        before = kernel.launches
+        _, _, m = step(lm, opt.init(dict(lm.named_parameters())), batch)
+        torch.cuda.synchronize()
+        want = 2 * 2 * cfg.n_layers if backend == "auto" else 0
+        assert kernel.launches - before == want
+        metrics[backend] = {k: float(v) for k, v in m.items()}
+    for key in ("loss", "grad_norm"):
+        assert metrics["auto"][key] == pytest.approx(metrics["reference"][key], rel=1e-4)

@@ -30,6 +30,14 @@ from repro_torch.models.model import (LM, _encode_memory, apply_decode, apply_lm
                                       init_params)
 
 PORTED = list(ARCH_IDS)
+
+
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The port's parameters are trainable: these forward checks run without
+    recording an autograd graph (as the serving entry points do)."""
+    with torch.no_grad():
+        yield
 REF_RT = RL.Runtime(mesh=None, data_axes=("data",), compute_dtype=jnp.float32)
 RT = Runtime("cpu", torch.float32)
 SEED = 0

@@ -23,6 +23,14 @@ RT = Runtime("cpu", torch.float32)
 EK = [(8, 1), (8, 2), (16, 4)]
 
 
+@pytest.fixture(autouse=True)
+def _forward_only():
+    """The port's parameters are trainable: these forward checks run without
+    recording an autograd graph (as the serving entry points do)."""
+    with torch.no_grad():
+        yield
+
+
 def _cfgs(E, k, d=32, f=64):
     kw = dict(name="t", family="moe", n_layers=1, d_model=d, n_heads=4, kv_heads=4, d_ff=f,
               vocab=64)
@@ -163,4 +171,72 @@ def test_replaying_recorded_routes_reproduces_the_block():
     with MOE.replaying_routes(routes[1:]):
         y_forced, _ = MOE.apply_moe(block, x, cfg, RT, cf=0.5)
     assert not torch.allclose(y_forced, y)
+    assert not MOE._ROUTE_SOURCES and not MOE._ROUTE_SINKS
+
+
+# --- gradients (the autouse no_grad above is lifted inside these) -----------
+def _moe_loss_grads(block, cfg, x, cf):
+    """Gradients of sum(y²) + 0.01·aux with respect to the block's leaves and
+    x, as tests/test_moe.py::test_moe_grads_flow forms the loss."""
+    with torch.enable_grad():
+        for p in block.parameters():
+            p.grad = None
+        xt = torch.tensor(x, requires_grad=True)
+        y, aux = MOE.apply_moe(block, xt, cfg, RT, cf=cf)
+        ((y ** 2).sum() + 0.01 * aux).backward()
+    return {**{name: getattr(block, name).grad for name in ("router", "w_gate", "w_up",
+                                                              "w_down")}, "x": xt.grad}
+
+
+def test_moe_grads_flow():
+    """As the reference's test: the router and every expert weight receive a
+    non-zero gradient through the scatter (index_put_ with accumulate), the
+    stable top-k gather and the renormalised probabilities."""
+    cfg, _ = _cfgs(8, 2)
+    block, _ = _block(cfg)
+    grads = _moe_loss_grads(block, cfg, _x(cfg, 1, 8), 8.0)
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        assert float(grads[name].abs().max()) > 0, name
+
+
+@pytest.mark.parametrize("E,k,cf", [(8, 2, 8.0), (8, 1, 8.0), (16, 4, 0.5)])
+def test_moe_grads_match_reference(E, k, cf):
+    """Gradients of the leaves and of x against jax.grad of the reference's
+    apply_moe on the same weights: atol 1e-5, rtol 1e-4; dropless at cf 8
+    (the reference test's), and with capacity drops at cf 0.5."""
+    cfg, rcfg = _cfgs(E, k)
+    block, ref_p = _block(cfg)
+    x = _x(cfg, 1 if cf == 8.0 else 2, 8 if cf == 8.0 else 32)
+
+    def ref_loss(p, x):
+        y, aux = RMOE.apply_moe(p, x, rcfg, REF_RT, cf=cf)
+        return (y ** 2).sum() + 0.01 * aux
+
+    want_p, want_x = jax.grad(ref_loss, argnums=(0, 1))(ref_p, jnp.asarray(x))
+    got = _moe_loss_grads(block, cfg, x, cf)
+    for name in ("router", "w_gate", "w_up", "w_down"):
+        np.testing.assert_allclose(got[name].numpy(), np.asarray(want_p[name]), atol=1e-5,
+                                   rtol=1e-4, err_msg=name)
+    np.testing.assert_allclose(got["x"].numpy(), np.asarray(want_x), atol=1e-5, rtol=1e-4)
+
+
+def test_recomputing_records_nothing_and_replays_the_forwards_ids():
+    """moe.recomputing (a checkpointed layer's recompute) hides the open
+    recording blocks and, given ids, replays them; the sinks are restored
+    after it, and nested recording blocks are removed by identity."""
+    cfg, _ = _cfgs(8, 2)
+    block, _ = _block(cfg)
+    x = torch.as_tensor(_x(cfg, 2, 16))
+    with MOE.recording_routes() as outer, MOE.recording_routes() as inner:
+        assert not MOE.replaying()
+        with MOE.recomputing():
+            MOE.apply_moe(block, x, cfg, RT, cf=0.5)
+        assert outer == [] and inner == []
+        forced = [torch.zeros((2, 16, 2), dtype=torch.int64)]
+        with MOE.recomputing(forced), MOE.recording_routes() as during:
+            assert MOE.replaying()
+            MOE.apply_moe(block, x, cfg, RT, cf=0.5)
+        assert torch.equal(during[0], forced[0]) and outer == [] and inner == []
+        MOE.apply_moe(block, x, cfg, RT, cf=0.5)
+    assert len(outer) == 1 and len(inner) == 1 and outer[0] is inner[0]
     assert not MOE._ROUTE_SOURCES and not MOE._ROUTE_SINKS

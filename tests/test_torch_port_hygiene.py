@@ -130,7 +130,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.kernels.ops, repro_torch.interop, repro_torch.configs, "
         "repro_torch.models.model, repro_torch.serve.engine, repro_torch.serve.step, "
         "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd, "
-        "repro_torch.models.mamba, repro_torch.launch.serve; "
+        "repro_torch.models.mamba, repro_torch.launch.serve, repro_torch.launch.train, "
+        "repro_torch.train.loop, repro_torch.train.step, repro_torch.train.optimizer, "
+        "repro_torch.train.checkpoint, repro_torch.data.pipeline; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -186,6 +188,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         Runtime()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, LM(cfg, "cpu"))
+    from repro_torch.train.loop import Trainer, TrainerConfig
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainerConfig())
 
 
 def test_registry_lists_only_the_ported_policies():

@@ -239,3 +239,59 @@ def test_ssd_bound_counts_the_least_work_at_the_serving_shape():
     per_head = chunks * (pairs * 2 * P + 2 * Q * P * N) / (495e12 / 3) \
         + chunks * (3 * pairs + Q * (2 + min(N, P)) + Q) / 67e12
     assert more - ms == pytest.approx(1e3 * 2 * per_head, rel=1e-9)
+
+
+# --- gradients: the SSD chunk step's backward (ref.ssd_chunk_plain recomputed
+# under autograd) and the inter-chunk recurrence's, through ops.ssd_chunks ---
+GRAD_SHAPES = [(1, 128, 2, 32, 16, 64), (2, 256, 4, 64, 32, 128), (1, 512, 2, 16, 16, 256)]
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", GRAD_SHAPES)
+def test_ssd_chunks_grads_match_reference(B, S, H, P, N, chunk):
+    """Gradients of y and the final state, summed with fixed numpy weights,
+    through ops.ssd_chunks against jax.grad of _ssd_chunks_ref: within 2e-4
+    of each input's max |grad|. The first two shapes are the reference's
+    test shapes; the third's decays (chunk 256) overflow exp above the
+    diagonal, where the gradient must stay finite. Prints the gaps (-s)."""
+    import jax
+
+    arrays = _inputs(B * S + P, B, S, H, P, N)
+    rng = np.random.default_rng(99)
+    wy = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    ws = rng.standard_normal((B, H, P, N)).astype(np.float32)
+
+    def ref_loss(*a):
+        y, s = _ssd_chunks_ref(*a, chunk=chunk)
+        return (y * wy).sum() + (s * ws).sum()
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2, 3))(*(jnp.asarray(a) for a in arrays))
+    t = [torch.tensor(a, requires_grad=True) for a in arrays]
+    before = port_kernel.launches
+    y, final = ops.ssd_chunks(*t, chunk=chunk)
+    ((y * torch.as_tensor(wy)).sum() + (final * torch.as_tensor(ws)).sum()).backward()
+    assert port_kernel.launches == before
+    gaps = {}
+    for name, got, w in zip(("x", "B", "C", "da"), t, want):
+        w = np.asarray(w)
+        assert np.isfinite(got.grad.numpy()).all(), name
+        gaps[name] = float(np.max(np.abs(got.grad.numpy() - w)) / np.max(np.abs(w)))
+        assert gaps[name] < 2e-4, (name, gaps[name])
+    print(f"ssd grad gaps {(B, S, H, P, N, chunk)}: {gaps}")
+
+
+def test_chunk_step_backward_is_the_plain_versions_gradient():
+    """SSDChunk's backward equals autograd through ssd_chunk_plain itself
+    (bit for bit: it is that recompute), gradients reaching da also through
+    the cumsum output."""
+    arrays = _inputs(21, 2, 64, 3, 16, 16)
+    rng = np.random.default_rng(22)
+    outs_w = [torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+              for s in ((2, 64, 3, 16), (2, 4, 3, 16, 16), (2, 64, 3))]
+    grads = []
+    for fn in (lambda *a: ops.SSDChunk.apply(*a, 16, "auto"),
+               lambda *a: ref.ssd_chunk_plain(*a, 16)):
+        t = [torch.tensor(a, requires_grad=True) for a in arrays]
+        sum((o * w).sum() for o, w in zip(fn(*t), outs_w)).backward()
+        grads.append([a.grad for a in t])
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
