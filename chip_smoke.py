@@ -23,11 +23,13 @@ is non-zero:
                time (graph_ms, below) and the lower bound from the shapes;
                the graph-replayed launch floor (a one-element kernel).
   4. main    — allocate("crms", ...) on the card for the paper's four apps
-               (fitted) and make_tenant_mix(M), M in {8, 16, 32, 64}, against
-               the JAX reference's results in tests/data/torch_port_golden.json:
-               identical counts, utility within rtol 1e-6, equal refinement /
-               accepted-move / P1-call counters, and at least one kernel launch
-               per refinement iteration.
+               (fitted) and make_tenant_mix(M), M in {8, 16, 32, 64}, and
+               allocate("crms_p95", ...) at M=8 without and with a rollout
+               budget (2 rollouts of 20 s), against the JAX reference's
+               results in tests/data/torch_port_golden.json: identical counts,
+               utility within rtol 1e-6, equal refinement / accepted-move /
+               P1-call / rollout-call / accepted-rollout counters, and at least
+               one kernel launch per refinement iteration.
   5. vector  — crms_priority (a per-app alpha vector) at M=8, which evaluates
                the grid with the float64 oracle, so it launches no kernel.
   6. flash   — the flash-attention kernel (bf16: wgmma with TMA-fed K/V;
@@ -151,12 +153,36 @@ is non-zero:
  16. mamba-train — mamba2-130m at full width, B 8 x S 512 (two chunks of
                256) in one microbatch, the same checks and numbers with 48 ssd
                launches a step.
+ 17. simulate — the simulation at make_tenant_mix(64), the phase-4
+               allocation: (1) one rollout of the incumbent and its 2M ±1
+               moves (B 129, 40 s, 8 s warmup, seed 0) on the card against
+               the host loop (backend "numpy") on the same draws: waits on
+               valid customer slots bit for bit (else rtol 1e-12, the gap
+               printed), mean/p95/pooled within rtol 1e-12; K, Kp, n_pad,
+               cold and cached ms, device kernels (torch.profiler), the waits'
+               bytes. (2) allocate("crms_p95") with 4 rollouts of 40 s against
+               the golden file as phase 4 (rollout counters too), except that
+               the counts may differ by a permutation inside a class of apps
+               identical but for their names (the mix tiles its four apps
+               with a factor cycle of three tiles, so nearly every move ties
+               exactly with its twins' in the model and the last bits break
+               the tie either way); crms_grid launches counted from zero, the
+               rollouts' share of the solve's wall clock. (3) simulate_allocation (engine "vector", 2000 s,
+               200 s warmup): finite mean and p95 for every served app; wall
+               clock, customers/s, scan steps, and launches as the steps times
+               the kernels per step of a profiled 40 s run. (4) the event
+               engine (host) against the vector engine (card) over 400 s, and at
+               make_tenant_mix(16) with MMPP arrivals, a cold-start ramp
+               superseded mid-ramp and a scripted crash and repair: per
+               customer, arrivals within rtol/atol 1e-9, responses within
+               rtol 1e-7 / atol 1e-9; both wall clocks.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
 the script prints no result and exits non-zero.
 """
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -390,9 +416,35 @@ def build_instance(spec, device):
     return apps, ServerCaps(*spec["caps"])
 
 
-def run_entry(name, golden, device):
+def twin_classes(apps):
+    """Index groups of apps that differ only by name: the model cannot tell
+    them apart, so a move on one ties exactly with the same move on another."""
+    groups = {}
+    for i, a in enumerate(apps):
+        groups.setdefault(dataclasses.replace(a, name=""), []).append(i)
+    return [g for g in groups.values() if len(g) > 1]
+
+
+def match_twins(apps, n, r_cpu, ref_n, ref_cpu):
+    """(order, ref_order): the app orders that pair the solve's apps with the
+    reference's when the counts differ only inside classes of identical apps
+    (sorted by count and CPU quota within each class); None if they differ
+    elsewhere."""
+    order, ref_order = np.arange(len(apps)), np.arange(len(apps))
+    for g in twin_classes(apps):
+        order[g] = np.asarray(g)[np.lexsort((r_cpu[g], n[g]))]
+        ref_order[g] = np.asarray(g)[np.lexsort((ref_cpu[g], ref_n[g]))]
+    return (order, ref_order) if np.array_equal(n[order], ref_n[ref_order]) else None
+
+
+def run_entry(name, golden, device, twins_interchangeable=False):
     """One allocate() on the card against the golden entry; returns the
-    kernel launches it made."""
+    kernel launches it made, its refinement iterations and the Allocation.
+    ``twins_interchangeable``: counts may differ from the reference's by a
+    permutation inside a class of identical apps (``twin_classes``), where
+    every refinement choice is an exact tie in the model that the last bits
+    of the card's and the reference's arithmetic break either way; the
+    quotas are then compared in the matched order."""
     from repro_torch.api import AllocRequest, allocate
     from repro_torch.kernels import crms_grid
 
@@ -406,26 +458,37 @@ def run_entry(name, golden, device):
     wall = time.perf_counter() - t0
     launches = crms_grid.launches - before
     alloc, diag = res.allocation, res.diagnostics
-    if list(map(int, alloc.n)) != entry["n"]:
+    ref_n, ref_cpu, ref_mem = (np.asarray(entry[k]) for k in ("n", "r_cpu", "r_mem"))
+    order = ref_order = np.arange(len(apps))
+    identical = list(map(int, alloc.n)) == entry["n"]
+    matched = None if identical or not twins_interchangeable else match_twins(
+        apps, np.asarray(alloc.n), np.asarray(alloc.r_cpu), ref_n, ref_cpu)
+    if matched is not None:
+        order, ref_order = matched
+    elif not identical:
         raise AssertionError(f"{name}: counts {alloc.n.tolist()} != reference {entry['n']}")
     if not abs(alloc.utility - entry["utility"]) <= 1e-6 * abs(entry["utility"]):
         raise AssertionError(f"{name}: utility {alloc.utility!r} != reference {entry['utility']!r}")
-    for k in ("refine_iters", "accepted_moves", "p1_calls"):
-        if getattr(diag, k) != entry[k]:
-            raise AssertionError(f"{name}: {k} {getattr(diag, k)} != reference {entry[k]}")
+    counters = alloc.meta["diagnostics"]  # the rollout counters ride here
+    for k in ("refine_iters", "accepted_moves", "p1_calls", "rollout_calls", "rollout_accepted"):
+        if counters[k] != entry[k]:
+            raise AssertionError(f"{name}: {k} {counters[k]} != reference {entry[k]}")
     if not (res.feasible and res.stable and np.all(np.isfinite(alloc.ws))):
         raise AssertionError(f"{name}: infeasible, unstable or non-finite result")
     quota_err = max(
-        float(np.max(np.abs(alloc.r_cpu - entry["r_cpu"]) / np.abs(entry["r_cpu"]))),
-        float(np.max(np.abs(alloc.r_mem - entry["r_mem"]) / np.abs(entry["r_mem"]))),
+        float(np.max(np.abs(alloc.r_cpu[order] - ref_cpu[ref_order]) / np.abs(ref_cpu[ref_order]))),
+        float(np.max(np.abs(alloc.r_mem[order] - ref_mem[ref_order]) / np.abs(ref_mem[ref_order]))),
     )
     log("main", case=name, policy=entry["policy"], M=len(apps), wall_s=wall,
+        counts_identical=identical,
+        counts_differ_at=np.flatnonzero(np.asarray(alloc.n) != ref_n).tolist(),
         utility=alloc.utility, utility_rel_err=abs(alloc.utility - entry["utility"])
         / abs(entry["utility"]), quota_rel_err=quota_err, refine_iters=diag.refine_iters,
         accepted_moves=diag.accepted_moves, p1_calls=diag.p1_calls, launches=launches,
+        rollout_calls=counters["rollout_calls"], rollout_accepted=counters["rollout_accepted"],
         p1_rescued_rows=diag.p1_rescued_rows, ref_p1_rescued_rows=entry["p1_rescued_rows"],
         p1_masked_rows=diag.p1_masked_rows, ref_p1_masked_rows=entry["p1_masked_rows"])
-    return launches, diag.refine_iters
+    return launches, diag.refine_iters, alloc
 
 
 def flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype):
@@ -1398,6 +1461,291 @@ def train_full(arch, batch_size, seq_len, phase):
             "peak_gb": peak / 1e9, **gaps, **prof}
 
 
+SIM_M = 64  # the allocator's largest instance, simulated at the reference's defaults
+SIM_HORIZON, SIM_WARMUP = 2000.0, 200.0  # simulate_allocation's defaults
+PARITY_HORIZON, PARITY_WARMUP = 400.0, 40.0
+STRUCT_M, STRUCT_HORIZON, T_COLD = 16, 300.0, 2.0
+ROLLOUT_STATS = ("mean_s", "p95_s", "pooled_mean_s", "pooled_p95_s")
+
+
+def profile_device(fn):
+    """``fn()`` once under torch.profiler: (its result, device kernels, device
+    copies and sets, device busy ms, profiled wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in device) / 1e3
+    return out, len(device) - len(copies), len(copies), busy, 1e3 * wall
+
+
+def rollout_batch(apps, alloc):
+    """A refinement step's rollout input at ``alloc``: the incumbent and its
+    2M ±1 moves (B = 2M + 1), every candidate at the incumbent's service
+    rates."""
+    from repro_torch.core.problem import service_rate
+
+    M = len(apps)
+    n0 = np.asarray(alloc.n, dtype=int)
+    mu0 = np.array([float(service_rate(a, c, m, "cpu"))
+                    for a, c, m in zip(apps, alloc.r_cpu, alloc.r_mem)])
+    n = np.vstack([n0] + [n0 + d * np.eye(M, dtype=int)[i] for i in range(M) for d in (-1, 1)])
+    return [a.name for a in apps], np.array([a.lam for a in apps]), np.tile(mu0, (len(n), 1)), n
+
+
+def check_rollout_scan(apps, alloc, horizon):
+    """Part 1: one rollout on the card against the host loop
+    (``backend="numpy"``) on the same CRN draws: the waits on every valid
+    customer slot bit for bit (else within rtol 1e-12, the gap printed), the
+    statistics within rtol 1e-12; cold and cached times, launches, bytes."""
+    from repro_torch.core import des_vector
+
+    names, lam, mu, n = rollout_batch(apps, alloc)
+    kw = dict(seed=SEED, warmup_s=0.2 * horizon)
+    des_vector._CRN_CACHE.clear()
+    times = []
+    for _ in range(3):  # cold (draws made and committed), then cached
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ro = des_vector.rollout_candidates(names, lam, mu, n, horizon, device="cuda", **kw)
+        times.append(1e3 * (time.perf_counter() - t0))
+    ro, kernels, copies, busy_ms, prof_ms = profile_device(
+        lambda: des_vector.rollout_candidates(names, lam, mu, n, horizon, device="cuda", **kw))
+    waits = ro._raw[0]
+    waits_bytes = waits.numel() * waits.element_size()
+    waits = waits.cpu().numpy()
+    t0 = time.perf_counter()
+    host = des_vector.rollout_candidates(names, lam, mu, n, horizon, backend="numpy", **kw)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    want = host._raw[0]
+    K = int(ro.n_arrivals.max())
+    slots = differ = 0
+    max_abs = max_rel = 0.0
+    for i, k in enumerate(ro.n_arrivals):
+        a, b = waits[:k, i], want[:k, i]
+        slots += a.size
+        differ += int(np.count_nonzero(a != b))
+        if k:
+            d = np.abs(a - b)
+            max_abs = max(max_abs, float(d.max()))
+            max_rel = max(max_rel, float((d / np.maximum(np.abs(b), 1e-300)).max()))
+    if differ and max_rel > 1e-12:
+        raise AssertionError(f"rollout scan: {differ} of {slots} waits differ from the host "
+                             f"loop's, max rel {max_rel} > 1e-12")
+    for key in ROLLOUT_STATS:
+        np.testing.assert_allclose(getattr(ro, key), getattr(host, key), rtol=1e-12, atol=0.0,
+                                   err_msg=key)
+    if not np.all(np.isfinite(ro.p95_s)):
+        raise AssertionError("rollout scan: a non-finite p95")
+    res = {"M": len(apps), "B": n.shape[0], "horizon_s": horizon, "K": K,
+           "Kp": des_vector._pad_pow2(K), "n_pad": des_vector._pad_pow2(int(n.max())),
+           "customers": int(ro.n_events), "valid_slots": slots, "slots_differ": differ,
+           "max_abs_diff": max_abs, "max_rel_diff": max_rel,
+           "cold_ms": times[0], "cached_ms": min(times[1:]), "profiled_ms": prof_ms,
+           "device_kernels": kernels, "device_copies": copies,
+           "kernels_per_step": kernels / K, "device_busy_ms": busy_ms,
+           "host_loop_ms": host_ms, "waits_bytes": waits_bytes}
+    log("simulate", part="scan", **res)
+    return res
+
+
+def solve_p95(golden):
+    """Part 2: allocate("crms_p95") with a rollout budget on the card
+    against the reference's result, its crms_grid launches counted from
+    zero and the rollouts' share of its wall clock."""
+    from repro_torch.core import des_vector
+    from repro_torch.kernels import crms_grid
+
+    rollout = des_vector.rollout_candidates
+    spent = []
+
+    def timed(*args, **kw):  # the solve reads p95_s: its copy and percentiles count
+        t0 = time.perf_counter()
+        ro = rollout(*args, **kw)
+        ro.p95_s
+        spent.append(time.perf_counter() - t0)
+        return ro
+
+    des_vector._CRN_CACHE.clear()
+    des_vector.rollout_candidates = timed
+    crms_grid.launches = 0
+    try:
+        t0 = time.perf_counter()
+        launches, refine_iters, alloc = run_entry("p95_rollout_mix64", golden, "cuda",
+                                                  twins_interchangeable=True)
+        wall = time.perf_counter() - t0
+    finally:
+        des_vector.rollout_candidates = rollout
+    if launches < refine_iters:
+        raise AssertionError(f"crms_p95: {launches} crms_grid launches < {refine_iters} "
+                             "refinement iterations")
+    res = {"wall_s": wall, "rollouts": len(spent), "rollout_s": sum(spent),
+           "rollout_share": sum(spent) / wall, "crms_grid_launches": launches,
+           "refine_iters": refine_iters}
+    log("simulate", part="crms_p95", **res)
+    return res
+
+
+def counted_scans():
+    """Wraps des_vector.segment_scan to count the segments and customer
+    steps a run scans; returns (the counts, a function that unwraps)."""
+    from repro_torch.core import des_vector
+
+    scan = des_vector.segment_scan
+    counts = {"segments": 0, "steps": 0, "customer_steps": 0}
+
+    def counted(W0, smask, gaps, svcs, valid, **kw):
+        counts["segments"] += 1
+        counts["steps"] += int(valid.sum(axis=0).max())
+        counts["customer_steps"] += int(valid.sum())
+        return scan(W0, smask, gaps, svcs, valid, **kw)
+
+    des_vector.segment_scan = counted
+
+    def restore():
+        des_vector.segment_scan = scan
+
+    return counts, restore
+
+
+def simulate_fleet(apps, alloc):
+    """Part 3: simulate_allocation on the card at the reference's defaults;
+    launches per step from a profiled 2 % run of the same allocation."""
+    from repro_torch.core.des import simulate_allocation
+
+    served = [i for i, a in enumerate(apps) if alloc.n[i] > 0 and a.lam > 0]
+    counts, restore = counted_scans()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = simulate_allocation(apps, alloc, horizon_s=SIM_HORIZON, warmup_s=SIM_WARMUP,
+                                    seed=SEED, engine="vector", device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        full = dict(counts)
+        counts.update(segments=0, steps=0, customer_steps=0)
+        _, kernels, copies, busy_ms, prof_ms = profile_device(lambda: simulate_allocation(
+            apps, alloc, horizon_s=0.02 * SIM_HORIZON, warmup_s=0.02 * SIM_WARMUP, seed=SEED,
+            engine="vector", device="cuda"))
+    finally:
+        restore()
+    bad = [apps[i].name for i in served
+           if not (np.isfinite(stats[i].mean_response_s) and np.isfinite(stats[i].p95_response_s))]
+    if bad:
+        raise AssertionError(f"simulate_allocation: non-finite mean or p95 for {bad}")
+    per_step = kernels / counts["steps"]
+    res = {"M": len(apps), "horizon_s": SIM_HORIZON, "wall_s": wall, **full,
+           "customers_per_s": full["customer_steps"] / wall,
+           "completed_in_window": sum(s.n_completed for s in stats),
+           "kernels_per_step": per_step, "launches": full["steps"] * per_step,
+           "short_run": {"horizon_s": 0.02 * SIM_HORIZON, "steps": counts["steps"],
+                         "device_kernels": kernels, "device_copies": copies,
+                         "device_busy_ms": busy_ms, "profiled_ms": prof_ms,
+                         "device_idle_share": 1.0 - busy_ms / prof_ms},
+           "max_mean_response_s": max(stats[i].mean_response_s for i in served),
+           "max_p95_response_s": max(stats[i].p95_response_s for i in served)}
+    log("simulate", part="simulate_allocation", **res)
+    return res
+
+
+def engine_pair(apps, alloc, horizon, warmup, case, script=None, **fleet):
+    """Part 4: the event engine (host) and the vector engine (card) on one
+    allocation and script; per-customer arrival times within rtol/atol 1e-9
+    and responses within rtol 1e-7 / atol 1e-9 (tests/test_des_vector.py's
+    bars), the same crash/repair counts and downs; both wall clocks."""
+    from repro_torch.core.des import FleetSimulator
+    from repro_torch.core.problem import service_rate
+
+    sims, walls = {}, {}
+    for engine, kw in (("event", {}), ("vector", {"device": "cuda"})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = FleetSimulator(seed=SEED, engine=engine, **fleet, **kw)
+        for i, a in enumerate(apps):
+            mu = float(service_rate(a, alloc.r_cpu[i], alloc.r_mem[i], "cpu"))
+            sim.add_app(a.name, a.lam, mu, int(alloc.n[i]))
+        (script or (lambda s: s.run_until(horizon)))(sim)
+        sim.drain()
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        sims[engine] = sim
+    ev, vec = sims["event"], sims["vector"]
+    customers = 0
+    max_resp = 0.0
+    for a in apps:
+        ce = ev._clusters[a.name]
+        te, re_ = np.asarray(ce.arr_log), np.asarray(ce.resp_log)
+        tv, wv, sv = vec._clusters[a.name].logs()
+        if te.shape != tv.shape or ce.n_arrived != vec._clusters[a.name].n_arrived:
+            raise AssertionError(f"{case} {a.name}: {te.shape[0]} event against {tv.shape[0]} "
+                                 "vector customers")
+        oe, ov = np.argsort(te), np.argsort(tv)
+        np.testing.assert_allclose(te[oe], tv[ov], rtol=1e-9, atol=1e-9, err_msg=a.name)
+        np.testing.assert_allclose(re_[oe], (wv + sv)[ov], rtol=1e-7, atol=1e-9, err_msg=a.name)
+        customers += te.shape[0]
+        if te.size:
+            max_resp = max(max_resp, float(np.max(np.abs(re_[oe] - (wv + sv)[ov]))))
+    if ev.failure_stats() != vec.failure_stats() or ev.downs() != vec.downs():
+        raise AssertionError(f"{case}: the engines' failure records differ")
+    window = [np.mean(ev.responses(a.name, warmup, horizon)) for a in apps
+              if ev.responses(a.name, warmup, horizon).size]
+    res = {"case": case, "M": len(apps), "horizon_s": horizon, "customers": customers,
+           "max_abs_response_diff": max_resp, "event_wall_s": walls["event"],
+           "vector_wall_s": walls["vector"], "mean_window_response_s": float(np.mean(window))}
+    log("simulate", part="event_vs_vector", **res)
+    return res
+
+
+def structural_script(apps, alloc):
+    """The structural-parity paths in one run: a cold-start ramp with a
+    configure landing mid-ramp, and a scripted crash and repair at segment
+    boundaries (the fleet's arrivals are MMPP)."""
+    a0, a1 = apps[0], apps[1]
+
+    def script(sim):
+        sim.run_until(100.0)
+        sim.configure(a0.name, lam=1.5 * a0.lam, n_servers=int(alloc.n[0]) + 4)  # cold ramp
+        sim.run_until(100.0 + 0.4 * T_COLD + 0.2)  # mid-ramp
+        sim.configure(a0.name, n_servers=int(alloc.n[0]) + 2, warm_pool=2)  # supersedes it
+        sim.crash(a1.name, 2)
+        sim.run_until(200.0)
+        sim.repair(a1.name, 2)
+        sim.run_until(STRUCT_HORIZON)
+
+    return script
+
+
+def simulate_phase(golden, allocations):
+    """Phase 17 at make_tenant_mix(64) (and 16 for the structural paths)."""
+    from repro_torch.core.arrivals import mmpp2
+    from repro_torch.core.lifecycle import LifecycleSpec
+    from repro_torch.core.profiler import make_tenant_mix
+
+    t_phase = time.perf_counter()
+    apps, _, _ = make_tenant_mix(SIM_M)
+    alloc = allocations[f"mix{SIM_M}"]
+    scan = check_rollout_scan(apps, alloc, 40.0)
+    p95 = solve_p95(golden)
+    fleet = simulate_fleet(apps, alloc)
+    pair = engine_pair(apps, alloc, PARITY_HORIZON, PARITY_WARMUP, f"mix{SIM_M}")
+    apps16, _, _ = make_tenant_mix(STRUCT_M)
+    alloc16 = allocations[f"mix{STRUCT_M}"]
+    struct = engine_pair(apps16, alloc16, STRUCT_HORIZON, PARITY_WARMUP,
+                         f"mix{STRUCT_M} mmpp+lifecycle+crash",
+                         structural_script(apps16, alloc16),
+                         arrival=mmpp2(burst=4.0, frac=0.15, cycle=40.0),
+                         lifecycle=LifecycleSpec(T_COLD, warm_pool=1))
+    log("simulate", phase_wall_s=time.perf_counter() - t_phase)
+    return {"scan": scan, "crms_p95": p95, "simulate_allocation": fleet,
+            "event_vs_vector": pair, "structural": struct}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
@@ -1463,8 +1811,10 @@ def main() -> int:
 
     # 4. the main path, counted from zero
     crms_grid.launches = 0
-    for entry in ("paper_fitted", "mix8", "mix16", "mix32", "mix64"):
-        launches, refine_iters = run_entry(entry, golden, "cuda")
+    allocations = {}
+    for entry in ("paper_fitted", "mix8", "mix16", "mix32", "mix64", "p95_mix8",
+                  "p95_rollout_mix8"):
+        launches, refine_iters, allocations[entry] = run_entry(entry, golden, "cuda")
         if launches < refine_iters:
             raise AssertionError(f"{entry}: {launches} crms_grid launches < "
                                  f"{refine_iters} refinement iterations")
@@ -1474,7 +1824,7 @@ def main() -> int:
         raise AssertionError("the main path never launched the crms_grid kernel")
 
     # 5. vector alpha: the float64 oracle branch, no kernel launch
-    launches, _ = run_entry("priority_mix8", golden, "cuda")
+    launches, _, _ = run_entry("priority_mix8", golden, "cuda")
     if launches != 0:
         raise AssertionError(f"crms_priority launched the scalar-alpha kernel {launches} times")
 
@@ -1543,6 +1893,12 @@ def main() -> int:
     if gemma_train["launches"][0] == 0 or mamba_train["launches"][1] == 0:
         raise AssertionError("the training path never launched the flash or the ssd kernel")
 
+    # 17. simulation on the card: the rollout scan against its host loop,
+    # crms_p95 with rollouts (crms_grid counted from zero), simulate_allocation,
+    # and the event engine against the vector engine
+    free_card()
+    simulated = simulate_phase(golden, allocations)
+
     print(smi, flush=True)
     timed_keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms",
                   "bound_ms", "bound_by", "library_ms", "library_graph_ms")
@@ -1553,6 +1909,8 @@ def main() -> int:
         "plain_ms": path_shape["plain_ms"],
         "bound_ms": path_shape["bound_ms"], "bound_by": path_shape["bound_by"],
         "library_ms": None, "launch_floor_graph_ms": floor_ms,
+        "crms_p95": {"launches": simulated["crms_p95"]["crms_grid_launches"],
+                     "refine_iters": simulated["crms_p95"]["refine_iters"]},
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

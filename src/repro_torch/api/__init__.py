@@ -9,7 +9,7 @@
 Submodules:
     types        — SolverOptions, AllocRequest, AllocResult, Diagnostics
     registry     — Policy protocol, register_policy, get_policy, allocate
-    policies     — the built-ins: crms, crms_priority
+    policies     — the built-ins: crms, crms_priority, crms_p95
     quasidynamic — QuasiDynamicPolicy, the §V-B caching decorator
 
 Exports resolve lazily (PEP 562): ``repro_torch.core.crms`` imports the
@@ -33,6 +33,8 @@ _EXPORTS = {
     "get_policy": "repro_torch.api.registry",
     "list_policies": "repro_torch.api.registry",
     "allocate": "repro_torch.api.registry",
+    # the tail-aware built-in (registered as "crms_p95")
+    "crms_p95_policy": "repro_torch.api.policies",
     # quasi-dynamic decorator
     "QuasiDynamicPolicy": "repro_torch.api.quasidynamic",
     # structured infeasibility (home: repro_torch.core.engine)

@@ -36,8 +36,9 @@ from repro_torch.api.types import SolverOptions
 from repro_torch.core import queueing
 from repro_torch.core.batch_eval import evaluate_candidates
 from repro_torch.core.engine import as_packed, ideal_configs_batch, p1_solve_batch
+from repro_torch.core.perf_model import eq1_latency
 from repro_torch.core.problem import Allocation, App, ServerCaps, evaluate, service_rate
-from repro_torch.device import resolve_device
+from repro_torch.device import f64, resolve_device
 
 
 @dataclasses.dataclass
@@ -92,6 +93,77 @@ def _pretrim_n(apps, caps, n, ideal, device=None):
     return n, False
 
 
+def _rollout_refine_pick(
+    apps, caps, packed, w, alpha, beta, tail_q, options, seed, cur, n, n_cands,
+    batch, ref_mean, dev,
+):
+    """Score the incumbent allocation + all neighbor moves of one refinement
+    iteration with ONE batched CRN DES rollout on ``dev`` (candidate 0 =
+    incumbent) and return the best rollout-improving move as a packaged
+    Allocation, or None when the incumbent wins every paired comparison.
+    Guards: a move must be P1-converged, analytic-feasible/stable, AND keep
+    the analytic λ-weighted mean latency within 2% of max(incumbent,
+    ``ref_mean``) — ``ref_mean`` is the mean-quota reference the caller
+    solved once, so the guard tracks the plain-Poisson mean-latency contract
+    of ``crms_p95`` against what the mean-objective pipeline would deliver,
+    not against a tail incumbent that happens to have bought extra CPU
+    (DESIGN.md §14)."""
+    from repro_torch.core.des_vector import rollout_candidates
+
+    n_all = np.vstack([np.asarray(n, dtype=int)[None, :], np.asarray(n_cands, dtype=int)])
+    c_all = np.vstack([np.asarray(cur.r_cpu, dtype=float)[None, :], np.asarray(batch.r_cpu)])
+    m_all = np.vstack([np.asarray(cur.r_mem, dtype=float)[None, :], np.asarray(batch.r_mem)])
+    ok = np.concatenate([[True], np.asarray(batch.converged, dtype=bool)])
+
+    # analytic MEAN latency — feasibility mask + the 2% non-regression guard
+    # (λ-weighted mean Ws, not utility: power growth is already priced into
+    # the rollout score's β term, so the guard only protects mean latency)
+    _, ws_mean, feas = evaluate_candidates(
+        packed, caps, n_all.astype(float), c_all, m_all,
+        alpha if w is None else alpha * w, beta, hard=True, device=dev,
+    )
+    lam_w = np.asarray(packed.lam, dtype=float)
+    with np.errstate(invalid="ignore"):
+        mean_lat = np.sum(lam_w[None, :] * ws_mean, axis=1) / np.sum(lam_w)
+    guard = mean_lat[0] if not np.isfinite(ref_mean) else max(mean_lat[0], ref_mean)
+    ok &= feas
+    ok &= ~np.isnan(mean_lat) & (mean_lat <= guard * 1.02 + 1e-12)
+    if not ok[0] or not np.any(ok[1:]):
+        return None
+    kap = f64(packed.kappa, dev)
+    d_ms = eq1_latency((kap[:, 0], kap[:, 1], kap[:, 2]), f64(c_all, dev), f64(m_all, dev))
+    mu_all = 1000.0 / (packed.xbar[None, :] * d_ms.cpu().numpy())
+    # masked rows (unconverged P1) may carry garbage quotas; substitute the
+    # incumbent's rates so rollout validation passes — their scores are inf
+    bad = (~ok[:, None]) | ~np.isfinite(mu_all) | (mu_all <= 0.0)
+    mu_all = np.where(bad, mu_all[0:1, :], mu_all)
+    n_sim = np.where(~ok[:, None], n_all[0:1, :], n_all)
+
+    horizon = float(options.rollout_horizon_s)
+    ro = rollout_candidates(
+        [a.name for a in apps], lam_w, mu_all, n_sim, horizon,
+        seed=seed, warmup_s=0.2 * horizon, device=dev,
+    )
+    metric = ro.p95_s if tail_q else ro.mean_s
+    aw = np.full(len(apps), float(alpha)) if w is None else float(alpha) * np.asarray(w, dtype=float)
+    dp = caps.power.span * n_all * c_all / caps.r_cpu
+    score = np.sum(aw[None, :] * metric + beta * dp / lam_w[None, :], axis=1)
+    score = np.where(np.isfinite(score) & ok, score, np.inf)
+    if not np.isfinite(score[0]):
+        return None
+    j = int(np.argmin(score[1:])) + 1
+    if not score[j] < score[0] - 1e-12:
+        return None
+    cand = evaluate(
+        apps, n_all[j], c_all[j], m_all[j], caps, alpha, beta, weights=w, tail_q=tail_q,
+        device=dev,
+    )
+    if not (cand.feasible and cand.stable):
+        return None
+    cand.meta["rollout_score"] = float(score[j])
+    return cand
+
+
 def crms(
     apps: Sequence[App],
     caps: ServerCaps,
@@ -104,6 +176,7 @@ def crms(
     newton: str = "structured",
     grid_seed: bool = True,
     options: SolverOptions | None = None,
+    seed: int = 0,
     device=None,
 ) -> Allocation:
     """Paper Algorithm 2 (CRMS) on ``device``. Returns the final feasible
@@ -114,9 +187,13 @@ def crms(
     schedule). When given it is authoritative; the ``max_refine_iters``/
     ``newton``/``grid_seed`` kwargs fold into an options object when it is
     None. ``options.tail_target`` swaps every α·Ws_i latency term for the
-    analytic response-time quantile surrogate. ``options.rollout_budget > 0``
-    (DES-scored refinement) needs the batched rollout simulator and raises
-    NotImplementedError.
+    analytic response-time quantile surrogate; ``options.rollout_budget``
+    additionally lets refinement spend that many batched CRN DES rollout
+    calls (des_vector.rollout_candidates, on ``device``) scoring its move
+    batches by *achieved* p95 instead of the surrogate (DESIGN.md §14). Both
+    ride the batched engine only — a serial ``solver`` override stays
+    mean-objective. ``seed`` feeds the rollout CRN streams (ignored without
+    a rollout budget).
     ``solver``: optional serial P1 solver override with the `p1_solve`
     signature; when None every P1 goes through the batched engine.
     ``warm``: a previous Allocation for the same app mix (quasi-dynamic
@@ -130,12 +207,6 @@ def crms(
             newton=newton,
             grid_seed=grid_seed,
             max_refine_iters=max_refine_iters,
-        )
-    if solver is None and options.rollout_budget > 0:
-        raise NotImplementedError(
-            "SolverOptions.rollout_budget > 0 scores refinement moves with the "
-            "batched DES rollout, which repro_torch does not have until the "
-            "simulation slice of the port lands"
         )
     # Priority weighting (options.app_weights): the latency term becomes
     # α·w_i·Ws_i everywhere — Algorithm 1's ideal configs, every P1 interior
@@ -251,6 +322,24 @@ def crms(
     floors = np.array(
         [max(_stability_floor(apps[i], c_hint[i], apps[i].r_max, dev), 1) for i in range(M)]
     )
+    rollout_ref_mean = np.inf
+    if solver is None and options.rollout_budget > 0:
+        # mean-quota reference for the rollout mean guard: what the paper's
+        # mean objective would achieve at this N — solved once, not per move
+        ref_batch = p1_solve_batch(
+            packed, caps, np.asarray(n, dtype=float)[None, :], alpha_w, beta,
+            c_hint=c_hint, profile=options.refine_profile, solver=options.newton,
+            device=dev,
+        )
+        note_p1(ref_batch.info)
+        if bool(np.asarray(ref_batch.converged)[0]):
+            _, ws_ref, feas_ref = evaluate_candidates(
+                packed, caps, np.asarray(n, dtype=float)[None, :],
+                ref_batch.r_cpu, ref_batch.r_mem, alpha_w, beta, hard=True, device=dev,
+            )
+            lam_v = np.array([a.lam for a in apps], dtype=float)
+            if bool(feas_ref[0]):
+                rollout_ref_mean = float(np.sum(lam_v * ws_ref[0]) / np.sum(lam_v))
     for _ in range(options.max_refine_iters):
         moves = [
             (i, delta)
@@ -287,6 +376,28 @@ def crms(
                 device=dev,
             )
             note_p1(batch.info)
+            if options.rollout_budget > 0 and diag["rollout_calls"] < options.rollout_budget:
+                # DES-scored refinement (DESIGN.md §14): ONE batched CRN
+                # rollout ranks incumbent + all moves on achieved p95 (paired
+                # comparison — shared draws, so short horizons are decisive).
+                # The seed is fixed across iterations, making the rollout
+                # objective a deterministic function of N: accepted moves
+                # strictly decrease it, so the loop cannot cycle.
+                diag["rollout_calls"] += 1
+                picked = _rollout_refine_pick(
+                    apps, caps, packed, w, alpha, beta, tail_q, options,
+                    seed, cur, n, n_cands, batch, rollout_ref_mean, dev,
+                )
+                if picked is None:
+                    break  # incumbent wins every paired comparison
+                cur = picked
+                n = picked.n.copy()
+                diag["accepted_moves"] += 1
+                diag["rollout_accepted"] += 1
+                history.append(
+                    {"stage": "greedy_rollout", "n": n.tolist(), "U": picked.utility}
+                )
+                continue
             u_cand, _, _ = evaluate_candidates(
                 packed, caps, n_cands.astype(float), batch.r_cpu, batch.r_mem,
                 alpha_w, beta, hard=True, tail_q=tail_q, device=dev,

@@ -19,7 +19,7 @@ from repro_torch.core.power import PowerModel
 from repro_torch.core.problem import Allocation, App, ServerCaps
 
 COUNTERS = ("refine_iters", "accepted_moves", "p1_calls", "p1_rescued_rows",
-            "p1_masked_rows", "warm_start")
+            "p1_masked_rows", "warm_start", "rollout_calls", "rollout_accepted")
 
 
 def apps_from_arrays(names: Sequence[str], kappa, lam, xbar, r_min, r_max, cpu_min,

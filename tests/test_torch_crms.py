@@ -1,7 +1,9 @@
-"""Slice gate of the PyTorch port: ``allocate("crms")`` and
-``allocate("crms_priority")`` through ``repro`` (JAX, CPU) and ``repro_torch``
+"""Slice gate of the PyTorch port: ``allocate("crms")``,
+``allocate("crms_priority")`` and ``allocate("crms_p95")`` (with and without a
+DES rollout budget) through ``repro`` (JAX, CPU) and ``repro_torch``
 (``device="cpu"``) on the same instances give identical container counts,
-quotas and utility within rtol 1e-6, and equal Diagnostics counters.
+quotas and utility within rtol 1e-6, and equal Diagnostics counters (the
+rollout calls and accepted rollout moves among them).
 
 The reference's results for the larger instances live in
 ``tests/data/torch_port_golden.json``; ``test_golden_file_is_current``
@@ -34,9 +36,11 @@ from repro_torch.core.crms import QuasiDynamicAllocator, algorithm1, crms
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "data", "torch_port_golden.json")
 COUNTERS = ("refine_iters", "accepted_moves", "p1_calls", "p1_rescued_rows",
-            "p1_masked_rows", "warm_start")
+            "p1_masked_rows", "warm_start", "rollout_calls", "rollout_accepted")
 LAM4 = (8.0, 7.0, 10.0, 15.0)
 PRIORITY = {"ResNet_v2": 3.0, "MobileNet_v2": 0.5}
+ROLLOUT8 = {"rollout_budget": 2, "rollout_horizon_s": 20.0}
+ROLLOUT64 = {"rollout_budget": 4, "rollout_horizon_s": 40.0}
 
 # Instances by name: how each is built in both packages (the golden file
 # records the same description, which chip_smoke.py reads).
@@ -52,6 +56,9 @@ GOLDEN_ENTRIES = [
     ("paper_fitted", "paper_fitted", "crms", {}),
     *[(f"mix{M}", f"mix{M}", "crms", {}) for M in (8, 16, 32, 64)],
     ("priority_mix8", "mix8", "crms_priority", {"weights": PRIORITY}),
+    ("p95_mix8", "mix8", "crms_p95", {}),
+    ("p95_rollout_mix8", "mix8", "crms_p95", ROLLOUT8),
+    ("p95_rollout_mix64", "mix64", "crms_p95", ROLLOUT64),  # checked on the card
 ]
 
 
@@ -87,8 +94,11 @@ def _to_port(apps, caps):
 
 def _ref_entry(alloc, diag):
     """The comparison record of a reference Allocation; ``diag`` is its
-    Diagnostics (a dataclass) or the raw meta["diagnostics"] dict."""
+    Diagnostics (a dataclass) or the raw meta["diagnostics"] dict. The
+    rollout counters, which the Diagnostics dataclass does not lift, come
+    from the meta dict."""
     diag = diag if isinstance(diag, dict) else dataclasses.asdict(diag)
+    diag = {**alloc.meta.get("diagnostics", {}), **diag}
     return {
         "n": [int(v) for v in alloc.n],
         "r_cpu": [float(v) for v in alloc.r_cpu],
@@ -119,8 +129,13 @@ def _run_ref_cached(instance, policy, extra_json):
 
 
 def _run_port(instance, policy, extra=None):
+    return _run_port_cached(instance, policy, json.dumps(extra or {}, sort_keys=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _run_port_cached(instance, policy, extra_json):
     port_apps, port_caps = _to_port(*_ref_instance(instance))
-    res = allocate(policy, AllocRequest(port_apps, port_caps, extra=dict(extra or {}),
+    res = allocate(policy, AllocRequest(port_apps, port_caps, extra=json.loads(extra_json),
                                         device="cpu"))
     return interop.allocation_to_arrays(res.allocation), res
 
@@ -139,6 +154,9 @@ def golden():
         ("mix8", "crms", None),
         ("paper_truth", "crms_priority", {"weights": PRIORITY}),
         ("mix8", "crms_priority", {"weights": PRIORITY}),
+        ("paper_truth", "crms_p95", None),
+        ("mix8", "crms_p95", None),
+        ("mix8", "crms_p95", ROLLOUT8),
     ],
 )
 def test_allocate_matches_reference(instance, policy, extra):
@@ -155,7 +173,7 @@ def test_allocate_mix16_matches_golden(golden):
 
 
 def test_golden_file_is_current(golden):
-    for name in ("paper_fitted", "mix8", "priority_mix8"):
+    for name in ("paper_fitted", "mix8", "priority_mix8", "p95_mix8", "p95_rollout_mix8"):
         entry = golden["entries"][name]
         live = _run_ref(entry["instance"], entry["policy"], entry["extra"])
         for k, v in live.items():
@@ -223,11 +241,41 @@ def test_algorithm1_matches_reference():
         assert p.mu == pytest.approx(r.mu, rel=1e-12)
 
 
-def test_rollout_budget_needs_the_simulation_slice():
+def test_crms_p95_policy_matches_direct_tail_solve():
+    """The bars of the reference's test_p95.py: the policy is the direct
+    tail solve, with its options lifted into the diagnostics."""
     port_apps, port_caps = _to_port(*_ref_instance("paper_truth"))
-    with pytest.raises(NotImplementedError, match="simulation"):
-        crms(port_apps, port_caps, 1.4, 0.2,
-                       options=SolverOptions(rollout_budget=1), device="cpu")
+    res = allocate("crms_p95", AllocRequest(port_apps, port_caps, device="cpu"))
+    assert res.policy == "crms_p95"
+    assert res.diagnostics.extra["tail_target"] == 0.95
+    assert res.diagnostics.extra["rollout_budget"] == 0
+    direct = crms(port_apps, port_caps, 1.4, 0.2, options=SolverOptions(tail_target=0.95),
+                  device="cpu")
+    np.testing.assert_array_equal(res.allocation.n, direct.n)
+
+
+def test_crms_p95_rollout_budget_consumed_and_capped():
+    port, res = _run_port("mix8", "crms_p95", ROLLOUT8)
+    d = res.allocation.meta["diagnostics"]
+    assert 0 < d["rollout_calls"] <= 2
+    assert 0 <= d["rollout_accepted"] <= d["rollout_calls"]
+    assert res.feasible and res.stable
+    assert res.diagnostics.extra["rollout_budget"] == 2
+
+
+def test_rollout_budget_needs_the_simulation_slice():
+    """A rollout budget runs the refinement through the simulation slice
+    (des_vector.rollout_candidates): crms() spends it as the reference does,
+    on the mean objective too, and the rollout counters count."""
+    ref_apps, ref_caps = _ref_instance("paper_truth")
+    port_apps, port_caps = _to_port(ref_apps, ref_caps)
+    options = dict(rollout_budget=1, rollout_horizon_s=20.0)
+    r = ref_crms(ref_apps, ref_caps, 1.4, 0.2, options=RefOptions(**options), seed=3)
+    p = crms(port_apps, port_caps, 1.4, 0.2, options=SolverOptions(**options), seed=3,
+             device="cpu")
+    assert [h["stage"] for h in p.meta["history"]] == [h["stage"] for h in r.meta["history"]]
+    _assert_parity(interop.allocation_to_arrays(p), _ref_entry(r, r.meta["diagnostics"]))
+    assert p.meta["diagnostics"]["rollout_calls"] == 1
 
 
 def write_golden(path=GOLDEN):

@@ -4,7 +4,8 @@ launches of the allocator path and of a prefill through them (dense, MoE
 and the audio encoder-decoder), and training through them: gradients from
 the plain backwards of a kernel forward (flash against autograd through the
 naive oracle at the reference's 5e-5 / 5e-4 and 3e-2, SSD against the plain
-route within 2e-4 of the max), and a train step's launches.
+route within 2e-4 of the max), a train step's launches, and the simulation's
+scans on the card against their host loop (bit for bit).
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -365,3 +366,35 @@ def test_train_step_launches_each_kernel_twice_per_layer(cuda_device, arch):
         metrics[backend] = {k: float(v) for k, v in m.items()}
     for key in ("loss", "grad_norm"):
         assert metrics["auto"][key] == pytest.approx(metrics["reference"][key], rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_scans_on_the_card_match_the_host_loop(cuda_device):
+    """The simulation's Kiefer–Wolfowitz scans on the card against
+    ``backend="numpy"``: the segment engine's per-customer logs and a
+    rollout's statistics bit for bit (separate multiply and add, no FMA)."""
+    from repro_torch.core import des
+    from repro_torch.core.des_vector import rollout_candidates
+
+    logs = []
+    for kw in ({"device": cuda_device.type}, {"backend": "numpy"}):
+        sim = des.FleetSimulator(seed=7, engine="vector", **kw)
+        sim.add_app("x", lam=8.0, mu=1.8, n_servers=6)
+        sim.add_app("y", lam=15.0, mu=3.3, n_servers=7)
+        sim.run_until(100.0)
+        sim.configure("x", n_servers=3, lam=11.0)
+        sim.run_until(200.0)
+        sim.drain()
+        logs.append({nm: cl.logs() for nm, cl in sim._clusters.items()})
+    for nm, want in logs[1].items():
+        for a, b in zip(logs[0][nm], want):
+            np.testing.assert_array_equal(a, b)
+    mu = np.array([[1.8, 3.3], [2.0, 3.0], [1.5, 3.6]])
+    n = np.array([[6, 7], [5, 8], [0, 7]])
+    got = rollout_candidates(["x", "y"], [8.0, 15.0], mu, n, 60.0, seed=2, warmup_s=10.0,
+                             device=cuda_device.type)
+    assert got._raw[0].device.type == "cuda"
+    want = rollout_candidates(["x", "y"], [8.0, 15.0], mu, n, 60.0, seed=2, warmup_s=10.0,
+                              backend="numpy")
+    for k in ("mean_s", "p95_s", "pooled_mean_s", "pooled_p95_s"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))

@@ -132,7 +132,9 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.kernels.flash_attention, repro_torch.kernels.ssd, "
         "repro_torch.models.mamba, repro_torch.launch.serve, repro_torch.launch.train, "
         "repro_torch.train.loop, repro_torch.train.step, repro_torch.train.optimizer, "
-        "repro_torch.train.checkpoint, repro_torch.data.pipeline; "
+        "repro_torch.train.checkpoint, repro_torch.data.pipeline, repro_torch.core.des, "
+        "repro_torch.core.des_vector, repro_torch.core.arrivals, repro_torch.core.failures, "
+        "repro_torch.core.lifecycle; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -193,8 +195,31 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(cfg, TrainerConfig())
 
+    # the simulation: the vector engine and the rollouts run on the card by
+    # default; the event engine is host code and takes no device
+    from repro_torch.core import des
+    from repro_torch.core.des_vector import rollout_candidates
+    from repro_torch.core.problem import Allocation
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        des.FleetSimulator(engine="vector")
+    mu, n = np.array([[2.0, 3.0]]), np.array([[3, 2]])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rollout_candidates(["a", "b"], [4.0, 3.0], mu, n, 10.0)
+    alloc = Allocation(n=n0, r_cpu=np.full(4, 1.5), r_mem=np.array([a.r_max for a in apps]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        des.simulate_allocation(apps, alloc, horizon_s=20.0, warmup_s=2.0, engine="vector")
+    assert des.FleetSimulator(engine="vector", device="cpu").device == torch.device("cpu")
+    assert np.isfinite(rollout_candidates(["a", "b"], [4.0, 3.0], mu, n, 10.0,
+                                          device="cpu").mean_s).all()
+    on_cpu = des.simulate_allocation(apps, alloc, horizon_s=20.0, warmup_s=2.0,
+                                     engine="vector", device="cpu")
+    on_host = des.simulate_allocation(apps, alloc, horizon_s=20.0, warmup_s=2.0)
+    assert [s.n_completed for s in on_cpu] == [s.n_completed for s in on_host]
+    assert type(des.FleetSimulator()) is des.FleetSimulator
+
 
 def test_registry_lists_only_the_ported_policies():
     from repro_torch.api import list_policies
 
-    assert list_policies() == ["crms", "crms_priority"]
+    assert list_policies() == ["crms", "crms_p95", "crms_priority"]
