@@ -176,6 +176,25 @@ is non-zero:
                superseded mid-ramp and a scripted crash and repair: per
                customer, arrivals within rtol/atol 1e-9, responses within
                rtol 1e-7 / atol 1e-9; both wall clocks.
+ 18. scenarios — (runs right after phase 5, before any model is loaded)
+               the policies and the scenario layer on the card (device
+               None, des backend, vector engine): the six traces of
+               tests/data/torch_scenario_golden.json, each built from its
+               recorded description (the paper's four apps, alpha 1.4, beta
+               0.2): smoke (join, cap resize, leave, drift; crms,
+               predictive_crms, crms_priority), azure_trace (from_trace on
+               benchmarks/data/azure_synth.csv; crms, robust_crms), mmpp_p95
+               (MMPP arrivals, p95 SLO 2 s; crms_p95 and robust_crms_p95 with
+               2 rollouts of 20 s), flash_crowd (t_cold 2 s; crms,
+               crms_lifecycle, robust_crms_lifecycle), failures (MTBF 60 s,
+               a scripted crash and repair; crms, crms_failover, crms_shed)
+               and the crunch (caps (4, 1.2): crms_failover, crms_shed, crms
+               as single allocations). Each document valid (also compact) and
+               equal to the reference's (its vector engine on the CPU) field
+               by field: integers, booleans, strings and lists exactly, floats
+               within rtol 1e-6, the wall clocks left out. Per trace its wall clock, solves, re-plans and each
+               policy's replan_time_s_mean; crms_grid launches counted from
+               zero at least the phase's re-plans; the phase within 180 s.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
@@ -199,6 +218,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_port_golden.json"
 SERVE_GOLDEN = ROOT / "tests" / "data" / "torch_serve_golden.json"
 TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_train_golden.json"
+SCENARIO_GOLDEN = ROOT / "tests" / "data" / "torch_scenario_golden.json"
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/crms_grid.cu"
 REPLACES = "src/repro/kernels/crms_grid.py:86"
 FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -1746,6 +1766,225 @@ def simulate_phase(golden, allocations):
             "event_vs_vector": pair, "structural": struct}
 
 
+# ----------------------------------------------------------------------------
+# Scenarios (phase 18)
+# ----------------------------------------------------------------------------
+SCENARIO_RTOL = 1e-6
+# left out of the comparison: the wall clocks
+SCENARIO_SKIP = ("wall_clock_s", "replan_time_s_mean")
+SCENARIO_LIMIT_S = 180.0
+
+
+def plain(obj):
+    """JSON-safe copy: tuples as lists, NumPy scalars as Python numbers,
+    non-finite floats as None (as the scenario documents store them)."""
+    if isinstance(obj, dict):
+        return {str(k): plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple, np.ndarray)):
+        return [plain(v) for v in obj]
+    if isinstance(obj, (bool, np.bool_)):
+        return bool(obj)
+    if isinstance(obj, (int, np.integer)):
+        return int(obj)
+    if isinstance(obj, (float, np.floating)):
+        return float(obj) if np.isfinite(obj) else None
+    return obj
+
+
+def assert_same(ref, got, path="$"):
+    """Field by field: integers, booleans, strings, None and lists exactly,
+    floats within SCENARIO_RTOL, the keys in SCENARIO_SKIP left out. Both
+    sides JSON-shaped (``plain``)."""
+    if isinstance(ref, dict):
+        if not (isinstance(got, dict) and set(got) == set(ref)):
+            raise AssertionError(f"{path}: keys {sorted(got)} != reference {sorted(ref)}")
+        for k in ref:
+            if k not in SCENARIO_SKIP:
+                assert_same(ref[k], got[k], f"{path}.{k}")
+    elif isinstance(ref, list):
+        if not (isinstance(got, list) and len(got) == len(ref)):
+            raise AssertionError(f"{path}: {got!r} != reference {ref!r}")
+        for i, (a, b) in enumerate(zip(ref, got)):
+            assert_same(a, b, f"{path}[{i}]")
+    elif isinstance(ref, float) and isinstance(got, (int, float)) and not isinstance(got, bool):
+        if not abs(got - ref) <= SCENARIO_RTOL * abs(ref):
+            raise AssertionError(f"{path}: {got!r} != reference {ref!r} (rtol {SCENARIO_RTOL})")
+    elif not (type(got) is type(ref) and got == ref):
+        raise AssertionError(f"{path}: {got!r} != reference {ref!r}")
+
+
+def build_scenario(spec, api, problem):
+    """The Scenario that the golden file's ``spec`` describes, built with the
+    scenario package ``api`` and its problem module ``problem`` (the port's
+    here; the parity tests pass the reference's too)."""
+    def app(values):
+        return problem.App(**{**values, "kappa": tuple(values["kappa"])})
+
+    apps = tuple(app(a) for a in spec["apps"])
+    caps = problem.ServerCaps(*spec["caps"])
+    kw = dict(spec["kwargs"])
+    if "drift" in kw:
+        kw["drift"] = api.LambdaDrift(**kw["drift"])
+    if "trace" in kw:
+        kw["trace"] = ROOT / kw["trace"]
+    events = []
+    for ev in spec.get("events", ()):
+        fields = {k: v for k, v in ev.items() if k != "kind"}
+        if "app" in fields:
+            fields["app"] = app(fields["app"])
+        events.append(getattr(api, ev["kind"])(**fields))
+    if events:
+        kw["events"] = tuple(events)
+    if spec["constructor"] == "Scenario":
+        return api.Scenario(apps=apps, caps=caps, **kw)
+    return getattr(api.Scenario, spec["constructor"])(apps, caps, **kw)
+
+
+def _fresh(api, name):
+    """The registered policy ``name`` with its state dropped."""
+    policy = api.get_policy(name)
+    if hasattr(policy, "reset"):
+        policy.reset()
+    return policy
+
+
+def run_trace(spec, api, problem, des_engine="vector", backend=None, **runner_kw):
+    """The document of one trace through ``api``'s ScenarioRunner."""
+    r = spec["runner"]
+    for name in r["policies"]:
+        _fresh(api, name)
+    return api.ScenarioRunner(
+        build_scenario(spec, api, problem), r["policies"], quasi_dynamic=r["quasi_dynamic"],
+        extra=r["extra"], backend=backend or r["backend"], epoch_s=r["epoch_s"],
+        des_engine=des_engine, slo_p95_s=r["slo_p95_s"], **runner_kw).run()
+
+
+def alloc_record(res) -> dict:
+    """The comparison record of one allocate() result."""
+    a, d = res.allocation, res.diagnostics
+    return plain({
+        "n": a.n, "r_cpu": a.r_cpu, "r_mem": a.r_mem, "utility": a.utility,
+        "feasible": a.feasible, "stable": a.stable, "shed": d.shed,
+        "admission": a.meta.get("admission"), "extra": d.extra,
+        "refine_iters": d.refine_iters, "accepted_moves": d.accepted_moves,
+        "p1_calls": d.p1_calls,
+    })
+
+
+def crunch_records(spec, api, problem, **request_kw):
+    """The crunch's single allocations through ``api``: one record each and
+    the wall clocks."""
+    apps = tuple(problem.App(**{**a, "kappa": tuple(a["kappa"])}) for a in spec["apps"])
+    records, walls = [], {}
+    for call in spec["calls"]:
+        policy = _fresh(api, call["policy"])
+        t0 = time.perf_counter()
+        res = policy.allocate(api.AllocRequest(
+            apps=apps, caps=problem.ServerCaps(*spec["caps"]), alpha=spec["alpha"],
+            beta=spec["beta"], seed=spec["seed"], extra=json.loads(json.dumps(call["extra"])),
+            **request_kw))
+        walls[call["policy"]] = time.perf_counter() - t0
+        records.append({"policy": call["policy"], **alloc_record(res)})
+    return records, walls
+
+
+def counted_solves():
+    """Wraps the policies' crms to count the solves; returns (a one-element
+    count list, a function that unwraps)."""
+    from repro_torch.api import policies
+
+    solve = policies.crms
+    count = [0]
+
+    def counted(*args, **kw):
+        count[0] += 1
+        return solve(*args, **kw)
+
+    policies.crms = counted
+
+    def restore():
+        policies.crms = solve
+
+    return count, restore
+
+
+def replay_trace(name, spec, device):
+    """One trace through ScenarioRunner (des backend, vector engine) on
+    ``device`` against the reference's document: equal field by field, the
+    document and its compact form valid."""
+    from repro_torch import api
+    from repro_torch.core import problem
+
+    solves, restore = counted_solves()
+    try:
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        doc = run_trace(spec, api, problem, device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    api.validate_scenarios_doc(doc)
+    api.validate_scenarios_doc(api.compact_scenarios_doc(doc))
+    assert_same(spec["doc"], plain(doc), name)
+    matrix = doc["matrix"]
+    res = {"trace": name, "M": len(spec["apps"]), "n_epochs": doc["scenario"]["n_epochs"],
+           "epoch_s": spec["runner"]["epoch_s"], "cut": spec["cut"], "wall_s": wall,
+           "solves": solves[0], "replans": sum(m["n_replans"] for m in matrix.values()),
+           "replan_time_s_mean": {p: m["replan_time_s_mean"] for p, m in matrix.items()}}
+    log("scenarios", **res)
+    return res
+
+
+def replay_crunch(spec, device):
+    """The capacity crunch: single allocations (crms_failover, crms_shed,
+    crms) on ``device`` against the reference's records."""
+    from repro_torch import api
+    from repro_torch.core import problem
+
+    solves, restore = counted_solves()
+    try:
+        got, walls = crunch_records(spec, api, problem, device=device)
+    finally:
+        restore()
+    assert_same(spec["results"], got, "crunch")
+    failover = got[0]
+    if not (failover["feasible"] and failover["stable"] and failover["shed"]):
+        raise AssertionError("crunch: crms_failover did not shed to a feasible admitted set")
+    res = {"trace": "crunch", "M": len(spec["apps"]), "solves": solves[0], "replans": len(got),
+           "wall_s": sum(walls.values()), "policy_wall_s": walls,
+           "shed": failover["shed"], "admission": failover["admission"]}
+    log("scenarios", **res)
+    return res
+
+
+def replay_scenarios(golden, device):
+    traces = [replay_trace(name, spec, device) for name, spec in golden["traces"].items()]
+    return traces + [replay_crunch(golden["crunch"], device)]
+
+
+def scenario_phase():
+    """Phase 18: the six traces of tests/data/torch_scenario_golden.json on
+    the card (device None), crms_grid counted from zero."""
+    from repro_torch.kernels import crms_grid
+
+    golden = json.loads(SCENARIO_GOLDEN.read_text())
+    t_phase = time.perf_counter()
+    crms_grid.launches = 0
+    traces = replay_scenarios(golden, None)
+    launches = crms_grid.launches
+    wall = time.perf_counter() - t_phase
+    replans = sum(t["replans"] for t in traces)
+    res = {"launches": launches, "replans": replans,
+           "solves": sum(t["solves"] for t in traces), "phase_wall_s": wall}
+    log("scenarios", **res)
+    if launches < replans:
+        raise AssertionError(f"scenarios: {launches} crms_grid launches < {replans} re-plans")
+    if wall > SCENARIO_LIMIT_S:
+        raise AssertionError(f"scenarios: the phase took {wall:.1f} s > {SCENARIO_LIMIT_S} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
@@ -1827,6 +2066,13 @@ def main() -> int:
     launches, _, _ = run_entry("priority_mix8", golden, "cuda")
     if launches != 0:
         raise AssertionError(f"crms_priority launched the scalar-alpha kernel {launches} times")
+
+    # 18. the policies and the scenario layer: six traces replayed on the card
+    # against the reference's documents, crms_grid counted from zero. It runs
+    # here, before any model is loaded: its solves are host-bound, and in a
+    # process that has held the serving and training models each took ~1.8x
+    # as long
+    scenarios = scenario_phase()
 
     # 6. flash kernel against its plain version
     flash_path = check_flash(4, 512, 512, 1, 8, 256, True, torch.bfloat16, timed=True)
@@ -1911,6 +2157,7 @@ def main() -> int:
         "library_ms": None, "launch_floor_graph_ms": floor_ms,
         "crms_p95": {"launches": simulated["crms_p95"]["crms_grid_launches"],
                      "refine_iters": simulated["crms_p95"]["refine_iters"]},
+        "scenarios": {"launches": scenarios["launches"], "replans": scenarios["replans"]},
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

@@ -7,7 +7,8 @@ allocators up by name instead of importing their individual signatures.
     from repro_torch.api import AllocRequest, allocate, list_policies
     result = allocate("crms", AllocRequest(apps, caps, alpha=1.4, beta=0.2))
 
-Built-in policies (``crms``, ``crms_priority``, ``crms_p95``) live in
+Built-in policies (``crms``, ``crms_priority``, ``crms_p95`` and the
+robust, lifecycle, shedding, failover and predictive variants) live in
 ``repro_torch.api.policies`` and are registered lazily on first lookup, so
 importing the contract types never drags in the solvers.
 """

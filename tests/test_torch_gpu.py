@@ -4,8 +4,9 @@ launches of the allocator path and of a prefill through them (dense, MoE
 and the audio encoder-decoder), and training through them: gradients from
 the plain backwards of a kernel forward (flash against autograd through the
 naive oracle at the reference's 5e-5 / 5e-4 and 3e-2, SSD against the plain
-route within 2e-4 of the max), a train step's launches, and the simulation's
-scans on the card against their host loop (bit for bit).
+route within 2e-4 of the max), a train step's launches, the simulation's
+scans on the card against their host loop (bit for bit), and the smoke
+scenario trace on the card against the reference's document.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -398,3 +399,33 @@ def test_scans_on_the_card_match_the_host_loop(cuda_device):
                               backend="numpy")
     for k in ("mean_s", "p95_s", "pooled_mean_s", "pooled_p95_s"):
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module: its phase-18 helpers build a trace from the
+    golden file's description and hold the document to the reference's."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.gpu
+def test_smoke_trace_on_the_card_matches_the_reference(cuda_device):
+    """The smoke trace (join, cap resize, leave, drift; crms, predictive_crms,
+    crms_priority) through ScenarioRunner on the card (device None, des
+    backend, vector engine) against the reference's document in
+    tests/data/torch_scenario_golden.json, as chip_smoke.py's phase 18 holds
+    it: integers, booleans, strings and lists exactly, floats within rtol
+    1e-6, the wall clocks left out; at least one crms_grid launch a re-plan."""
+    import json
+
+    smoke = _chip_smoke()
+    golden = json.loads(smoke.SCENARIO_GOLDEN.read_text())
+    before = port_kernel.launches
+    res = smoke.replay_trace("smoke", golden["traces"]["smoke"], None)
+    assert port_kernel.launches - before >= res["replans"] == 9

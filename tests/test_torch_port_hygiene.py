@@ -134,7 +134,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.train.loop, repro_torch.train.step, repro_torch.train.optimizer, "
         "repro_torch.train.checkpoint, repro_torch.data.pipeline, repro_torch.core.des, "
         "repro_torch.core.des_vector, repro_torch.core.arrivals, repro_torch.core.failures, "
-        "repro_torch.core.lifecycle; "
+        "repro_torch.core.lifecycle, repro_torch.api.scenario, repro_torch.api.quasidynamic; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -218,8 +218,33 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert [s.n_completed for s in on_cpu] == [s.n_completed for s in on_host]
     assert type(des.FleetSimulator()) is des.FleetSimulator
 
+    # the policies on the simulation and the scenario runner: every solve and
+    # the vector engine's replay run on the card by default
+    from repro_torch.api import Scenario, ScenarioRunner, get_policy
+
+    for name in ("robust_crms", "robust_crms_p95", "crms_lifecycle", "robust_crms_lifecycle",
+                 "crms_shed", "crms_failover", "predictive_crms"):
+        policy = get_policy(name)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            policy.allocate(AllocRequest(apps, caps, extra={"robust": 1.5}))
+        if hasattr(policy, "reset"):
+            policy.reset()
+    scenario = Scenario(name="s", apps=tuple(apps), caps=caps, n_epochs=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ScenarioRunner(scenario, ["crms"], backend="des", des_engine="vector", device=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ScenarioRunner(scenario, ["crms"], backend="des")
+    runner = ScenarioRunner(scenario, ["crms"], backend="des", des_engine="vector",
+                            device="cpu")
+    assert runner.device == "cpu"
+
 
 def test_registry_lists_only_the_ported_policies():
+    """The reference's policies less the search baselines and the fleet
+    placement, which the port does not have yet."""
+    from repro.api import list_policies as ref_list_policies
     from repro_torch.api import list_policies
 
-    assert list_policies() == ["crms", "crms_p95", "crms_priority"]
+    unported = {"snfc1", "snfc2", "random_search", "gpbo", "tpebo", "drf", "crms_fleet"}
+    assert unported <= set(ref_list_policies())
+    assert list_policies() == sorted(set(ref_list_policies()) - unported)
