@@ -182,7 +182,7 @@ is non-zero:
                tests/data/torch_scenario_golden.json, each built from its
                recorded description (the paper's four apps, alpha 1.4, beta
                0.2): smoke (join, cap resize, leave, drift; crms,
-               predictive_crms, crms_priority), azure_trace (from_trace on
+               predictive_crms, crms_priority, drf), azure_trace (from_trace on
                benchmarks/data/azure_synth.csv; crms, robust_crms), mmpp_p95
                (MMPP arrivals, p95 SLO 2 s; crms_p95 and robust_crms_p95 with
                2 rollouts of 20 s), flash_crowd (t_cold 2 s; crms,
@@ -194,7 +194,31 @@ is non-zero:
                by field: integers, booleans, strings and lists exactly, floats
                within rtol 1e-6, the wall clocks left out. Per trace its wall clock, solves, re-plans and each
                policy's replan_time_s_mean; crms_grid launches counted from
-               zero at least the phase's re-plans; the phase within 180 s.
+               zero at least the phase's re-plans through CRMS (all but
+               drf's); the phase within 180 s.
+ 19. baselines — (right after phase 18) the search baselines and the fleet
+               placement layer on the card (device None), against
+               tests/data/torch_baselines_golden.json and
+               tests/data/torch_fleet_golden.json (the reference on the CPU):
+               (a) the paper's Figs. 11-14 comparison (the four apps, ground-
+               truth κ, λ (8, 7, 10, 15), caps (30, 10)): crms; random_search
+               (20000 samples), gpbo and tpebo at their defaults, each at
+               seeds 0, 1, 2; drf; snfc1/2 at (120, 40) — counts exact,
+               floats rtol 1e-6, flags equal; CRMS's latency reduction over
+               every search baseline >= 14 %; each policy's wall clock and
+               random search's peak device memory. (b) random_search at
+               make_tenant_mix(16), 20000 samples: one float64 batch of
+               20000 x 16 lanes at Erlang width 512, its wall clock and peak
+               memory. (c) make_fleet(1000, 16): FleetPlanner.plan() and one
+               incremental replan (the benchmark's drift on 4 apps and one
+               migration) — assignment and counts exact, node utilities and
+               64 sampled nodes' floats rtol 1e-6, counters equal; 8 sampled
+               nodes against standalone p1_solve_batch within 1e-6; the
+               untouched nodes byte-identical; wall clocks and one full row
+               solve's device kernels (torch.profiler). (d) the 16 x 8
+               migration scenario (4 epochs, the vector engine on the card)
+               equal to the reference's document but for the wall clocks.
+               The phase within 120 s.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
@@ -202,6 +226,7 @@ the script prints no result and exits non-zero.
 """
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import re
@@ -1773,6 +1798,8 @@ SCENARIO_RTOL = 1e-6
 # left out of the comparison: the wall clocks
 SCENARIO_SKIP = ("wall_clock_s", "replan_time_s_mean")
 SCENARIO_LIMIT_S = 180.0
+# re-plans that launch no crms_grid kernel: DRF's demands are SP1 solves
+NO_CRMS_POLICIES = ("drf",)
 
 
 def plain(obj):
@@ -1931,6 +1958,8 @@ def replay_trace(name, spec, device):
     res = {"trace": name, "M": len(spec["apps"]), "n_epochs": doc["scenario"]["n_epochs"],
            "epoch_s": spec["runner"]["epoch_s"], "cut": spec["cut"], "wall_s": wall,
            "solves": solves[0], "replans": sum(m["n_replans"] for m in matrix.values()),
+           "crms_replans": sum(m["n_replans"] for p, m in matrix.items()
+                               if p not in NO_CRMS_POLICIES),
            "replan_time_s_mean": {p: m["replan_time_s_mean"] for p, m in matrix.items()}}
     log("scenarios", **res)
     return res
@@ -1952,6 +1981,7 @@ def replay_crunch(spec, device):
     if not (failover["feasible"] and failover["stable"] and failover["shed"]):
         raise AssertionError("crunch: crms_failover did not shed to a feasible admitted set")
     res = {"trace": "crunch", "M": len(spec["apps"]), "solves": solves[0], "replans": len(got),
+           "crms_replans": len(got),
            "wall_s": sum(walls.values()), "policy_wall_s": walls,
            "shed": failover["shed"], "admission": failover["admission"]}
     log("scenarios", **res)
@@ -1975,13 +2005,326 @@ def scenario_phase():
     launches = crms_grid.launches
     wall = time.perf_counter() - t_phase
     replans = sum(t["replans"] for t in traces)
-    res = {"launches": launches, "replans": replans,
+    crms_replans = sum(t["crms_replans"] for t in traces)
+    res = {"launches": launches, "replans": replans, "crms_replans": crms_replans,
            "solves": sum(t["solves"] for t in traces), "phase_wall_s": wall}
     log("scenarios", **res)
-    if launches < replans:
-        raise AssertionError(f"scenarios: {launches} crms_grid launches < {replans} re-plans")
+    if launches < crms_replans:
+        raise AssertionError(f"scenarios: {launches} crms_grid launches < {crms_replans} "
+                             "re-plans through CRMS")
     if wall > SCENARIO_LIMIT_S:
         raise AssertionError(f"scenarios: the phase took {wall:.1f} s > {SCENARIO_LIMIT_S} s")
+    return res
+
+
+# ----------------------------------------------------------------------------
+# The search baselines and the fleet placement layer (phase 19)
+# ----------------------------------------------------------------------------
+BASELINES_GOLDEN = ROOT / "tests" / "data" / "torch_baselines_golden.json"
+FLEET_GOLDEN = ROOT / "tests" / "data" / "torch_fleet_golden.json"
+FIG_LAM = (8.0, 7.0, 10.0, 15.0)  # the paper's constrained comparison (Figs. 11-14)
+FIG_CAPS, SUFFICIENT_CAPS = (30.0, 10.0), (120.0, 40.0)
+FIG_SEEDS = (0, 1, 2)
+SEARCHES = ("random_search", "gpbo", "tpebo")
+RS_SAMPLES = 20000
+MIN_REDUCTION_PCT = 14.0  # CRMS over the best search baseline (§VI)
+SEARCH_M = 16
+FLEET_NODES, FLEET_APPS, FLEET_SEED = 1000, 16, 0
+FLEET_SAMPLED, PARITY_NODES, PARITY_TOL = 64, 8, 1e-6
+FLEET_SCENARIO = (16, 8)
+FLEET_DIAGS = ("nodes_total", "apps", "M_pad", "width", "profile", "nodes_failed",
+               "p1_rescued_rows", "p1_masked_rows", "cold", "nodes_solved", "migrations",
+               "exchange_accepted")
+BASELINES_LIMIT_S = 120.0
+
+
+def baseline_calls(seeds=FIG_SEEDS):
+    """The Figs. 11-14 comparison as (key, policy, caps, seed, extra): crms,
+    each search baseline at each seed (random search with 20000 samples, the
+    BO baselines at their defaults), drf, and SNFC at the sufficient caps."""
+    calls = [("crms", "crms", FIG_CAPS, 0, {})]
+    for seed in seeds:
+        calls += [(f"random_search/{seed}", "random_search", FIG_CAPS, seed,
+                   {"n_samples": RS_SAMPLES}),
+                  (f"gpbo/{seed}", "gpbo", FIG_CAPS, seed, {}),
+                  (f"tpebo/{seed}", "tpebo", FIG_CAPS, seed, {})]
+    return calls + [("drf", "drf", FIG_CAPS, 0, {}),
+                    ("snfc1", "snfc1", SUFFICIENT_CAPS, 0, {}),
+                    ("snfc2", "snfc2", SUFFICIENT_CAPS, 0, {})]
+
+
+def baseline_record(res) -> dict:
+    """The comparison record of one baseline's allocate() result."""
+    a = res.allocation
+    return plain({"n": a.n, "r_cpu": a.r_cpu, "r_mem": a.r_mem, "utility": a.utility,
+                  "ws": a.ws, "feasible": a.feasible, "stable": a.stable})
+
+
+def _on_card(request_kw) -> bool:
+    return torch.cuda.is_available() and request_kw.get("device", "cuda") != "cpu"
+
+
+def _sync(request_kw):
+    if _on_card(request_kw):
+        torch.cuda.synchronize()
+
+
+def run_baselines(api, problem, profiler, seeds=FIG_SEEDS, **request_kw):
+    """The Figs. 11-14 calls through ``api.allocate`` on the paper's four apps
+    (ground-truth κ, λ (8, 7, 10, 15)): (records, wall clocks, random
+    search's peak device bytes by key)."""
+    apps = profiler.make_paper_apps(lam=FIG_LAM, fitted=False)
+    records, walls, peaks = {}, {}, {}
+    for key, policy, caps, seed, extra in baseline_calls(seeds):
+        request = api.AllocRequest(apps=apps, caps=problem.ServerCaps(*caps), alpha=1.4,
+                                   beta=0.2, seed=seed, extra=dict(extra), **request_kw)
+        measure = policy == "random_search" and _on_card(request_kw)
+        if measure:
+            torch.cuda.reset_peak_memory_stats()
+        _sync(request_kw)
+        t0 = time.perf_counter()
+        res = api.allocate(policy, request)
+        _sync(request_kw)
+        walls[key] = time.perf_counter() - t0
+        if measure:
+            peaks[key] = torch.cuda.max_memory_allocated()
+        records[key] = baseline_record(res)
+    return records, walls, peaks
+
+
+def search_record(api, profiler, **request_kw):
+    """Random search at make_tenant_mix(16), 20000 samples, seed 0: one
+    float64 batch of 20000 x 16 lanes at Erlang width 512."""
+    apps, caps, _ = profiler.make_tenant_mix(SEARCH_M)
+    return baseline_record(api.allocate("random_search", api.AllocRequest(
+        apps, caps, seed=0, extra={"n_samples": RS_SAMPLES}, **request_kw)))
+
+
+def mean_latency_s(record) -> float:
+    """The λ-weighted mean response of a Figs. 11-14 record (inf when an app
+    is unstable), as benchmarks/common.py's mean_latency."""
+    ws = record["ws"]
+    if not record["stable"] or any(w is None for w in ws):
+        return float("inf")
+    lam = np.asarray(FIG_LAM)
+    return float(np.sum(lam * np.asarray(ws)) / np.sum(lam))
+
+
+def reductions_pct(records, seeds=FIG_SEEDS) -> dict:
+    """CRMS's latency reduction over each search baseline, its latency the
+    mean over the seeds' finite ones (benchmarks/fig11_14_constrained.py)."""
+    w_crms = mean_latency_s(records["crms"])
+    out = {}
+    for name in SEARCHES:
+        finite = [w for w in (mean_latency_s(records[f"{name}/{s}"]) for s in seeds)
+                  if np.isfinite(w)]
+        w = float(np.mean(finite)) if finite else float("inf")
+        out[name] = 100.0 * (1.0 - w_crms / w) if np.isfinite(w) else 100.0
+    return out
+
+
+def fleet_drift(planner, seed=FLEET_SEED):
+    """The incremental re-plan of benchmarks/fleet_placement.py:82-110 (its
+    first): λ drift on max(2, N // 250) apps and one migration, drawn from
+    ``seed + 1`` in the benchmark's order. Returns (lam, migrations)."""
+    rng = np.random.default_rng(seed + 1)
+    idx = rng.choice(planner.A, size=max(2, planner.N // 250), replace=False)
+    mig_app = planner.apps[int(rng.integers(planner.A))].name
+    mig_dst = int(rng.integers(planner.N))
+    lam = {planner.apps[int(i)].name: float(planner.lam[int(i)]) * float(rng.uniform(0.85, 1.2))
+           for i in idx}
+    return lam, [(mig_app, mig_dst)]
+
+
+def node_floats(planner, nodes) -> dict:
+    """Per node of ``nodes`` its apps' quotas and response times, in app order."""
+    on = [np.flatnonzero(planner.assignment == j) for j in nodes]
+    return plain({"nodes": list(nodes), **{key: [getattr(planner, attr)[a] for a in on]
+                                           for key, attr in (("r_cpu", "sol_c"),
+                                                             ("r_mem", "sol_m"),
+                                                             ("ws", "sol_ws"))}})
+
+
+def fleet_record(planner, plan, cold, state=None):
+    """A plan's comparison record. Cold: the assignment and counts whole, every
+    node's utility, 64 sampled nodes' floats. Incremental (``state`` the
+    (assignment, n) before it): what changed, the re-solved nodes and theirs."""
+    rec = {"diagnostics": {k: plan.diagnostics[k] for k in FLEET_DIAGS},
+           "utility": plan.utility}
+    if cold:
+        sample = np.sort(np.random.default_rng(FLEET_SEED + 2).choice(
+            planner.N, size=min(FLEET_SAMPLED, planner.N), replace=False))
+        rec.update(assignment=plan.assignment, n=plan.n, node_utility=plan.node_utility,
+                   sampled=node_floats(planner, sample.tolist()))
+    else:
+        assignment, n = state
+        moved = np.flatnonzero(plan.assignment != assignment)
+        recount = np.flatnonzero(plan.n != n)
+        rec.update(moved={str(i): int(plan.assignment[i]) for i in moved},
+                   recount={str(i): int(plan.n[i]) for i in recount})
+    return plain(rec)
+
+
+def fleet_parity(planner, engine, nodes, **solve_kw) -> float:
+    """Max relative difference of the sampled nodes' rows from each node's
+    standalone p1_solve_batch at max_servers = the fleet's Erlang width
+    (benchmarks/fleet_placement.py's gate)."""
+    worst = 0.0
+    for j in nodes:
+        on_j, apps, caps, n_row, c_hint = planner.node_problem(int(j))
+        ref = engine.p1_solve_batch(
+            engine.PackedApps.from_apps(apps), caps, n_row, planner.alpha, planner.beta,
+            c_hint=c_hint, profile=planner.profile, max_servers=planner._width, **solve_kw)
+        if not (planner.node_ok[j] and bool(ref.converged[0])):
+            raise AssertionError(f"fleet: node {j} failed its standalone solve")
+        c, m = planner.sol_c[on_j], planner.sol_m[on_j]
+        worst = max(worst,
+                    float(np.max(np.abs(ref.r_cpu[0] - c) / np.abs(c))),
+                    float(np.max(np.abs(ref.r_mem[0] - m) / np.abs(m))),
+                    abs(float(ref.utility[0]) - float(planner.node_utility[j]))
+                    / abs(float(planner.node_utility[j])))
+    return worst
+
+
+def run_fleet(placement, n_nodes=FLEET_NODES, apps_per_node=FLEET_APPS, **planner_kw):
+    """make_fleet, a cold plan and the incremental re-plan through
+    ``placement``'s FleetPlanner: (planner, cold record, re-plan record,
+    the re-plan's re-solved nodes, numbers)."""
+    apps, node_caps = placement.make_fleet(n_nodes, apps_per_node, seed=FLEET_SEED)
+    sync = functools.partial(_sync, planner_kw)
+    sync()
+    t0 = time.perf_counter()
+    planner = placement.FleetPlanner(apps, node_caps, alpha=1.4, beta=0.2, **planner_kw)
+    init_s = time.perf_counter() - t0
+    plan = planner.plan()
+    sync()
+    cold_s = time.perf_counter() - t0 - init_s
+    cold = fleet_record(planner, plan, cold=True)
+    lam, migrations = fleet_drift(planner)
+    touched = sorted({int(planner.assignment[planner._name_idx[a]]) for a in lam}
+                     | {int(planner.assignment[planner._name_idx[migrations[0][0]]]),
+                        migrations[0][1]})
+    state = (planner.assignment.copy(), planner.n.copy())
+    sol = [getattr(planner, k).copy() for k in ("sol_c", "sol_m", "sol_ws", "node_utility")]
+    sync()
+    t0 = time.perf_counter()
+    replan = planner.replan(lam=lam, migrations=migrations)
+    sync()
+    incr_s = time.perf_counter() - t0
+    incr = fleet_record(planner, replan, cold=False, state=state)
+    incr.update(drift=lam, migrations=plain(migrations), touched=touched,
+                touched_utility=plain(planner.node_utility[touched]),
+                touched_nodes=node_floats(planner, touched))
+    # only the touched nodes re-solved: every other node's state byte-identical
+    others = ~np.isin(planner.assignment, touched) & ~np.isin(state[0], touched)
+    same_nodes = ~np.isin(np.arange(planner.N), touched)
+    for name, before, after in zip(("sol_c", "sol_m", "sol_ws"), sol[:3],
+                                   (planner.sol_c, planner.sol_m, planner.sol_ws)):
+        if before[others].tobytes() != after[others].tobytes():
+            raise AssertionError(f"fleet: the re-plan changed {name} off the touched nodes")
+    if sol[3][same_nodes].tobytes() != planner.node_utility[same_nodes].tobytes():
+        raise AssertionError("fleet: the re-plan changed an untouched node's utility")
+    if replan.diagnostics["nodes_solved"] != len(touched):
+        raise AssertionError(f"fleet: the re-plan solved {replan.diagnostics['nodes_solved']} "
+                             f"nodes, {len(touched)} touched")
+    numbers = {"nodes": n_nodes, "apps": planner.A, "init_s": init_s, "cold_plan_s": cold_s,
+               "plan_wall_clock_s": plan.diagnostics["wall_clock_s"],
+               "incremental_s": incr_s, "rows_cold": planner.N,
+               "rows_incremental": replan.diagnostics["nodes_solved"],
+               "width": planner._width, "M_pad": planner.M_pad}
+    return planner, cold, incr, numbers
+
+
+def fleet_scenario_doc(api, **runner_kw):
+    """benchmarks/fleet_placement.py:143-160's migration trace: 16 nodes x 8
+    apps, 4 epochs, λ x1.25 at epoch 1, app00001 to the last node at epoch 2,
+    3 nodes a epoch validated through the vector engine."""
+    n_nodes, m = FLEET_SCENARIO
+    sc = api.FleetScenario.from_fleet(
+        "fleet_migration", n_nodes, m, seed=0, n_epochs=4,
+        events=(api.LambdaScale(1, 1.25), api.AppMigrate(2, "app00001", n_nodes - 1)),
+        validate_nodes=3)
+    return api.FleetScenarioRunner(sc, epoch_s=40.0, **runner_kw).run()
+
+
+def check_fleet(golden, planner, cold, incr, engine, **solve_kw):
+    """The port's fleet records against the reference's, and the parity gate."""
+    ref = golden["plan"]
+    for key in ("assignment", "n"):
+        if cold[key] != ref[key]:
+            bad = np.flatnonzero(np.asarray(cold[key]) != np.asarray(ref[key]))
+            raise AssertionError(f"fleet: {key} differs from the reference at {bad[:10]}")
+    assert_same(ref, cold, "fleet.plan")
+    assert_same(golden["replan"], incr, "fleet.replan")
+    sample = np.random.default_rng(FLEET_SEED + 3).choice(planner.N, PARITY_NODES,
+                                                          replace=False)
+    parity = fleet_parity(planner, engine, sample, **solve_kw)
+    if not parity <= PARITY_TOL:
+        raise AssertionError(f"fleet: node parity {parity:.3e} > {PARITY_TOL}")
+    return parity
+
+
+def baselines_phase():
+    """Phase 19: the Figs. 11-14 comparison, the search-sized scoring, the fleet
+    at 1000 x 16 and the migration scenario on the card, against the
+    reference's records; crms_grid counted from zero."""
+    from repro_torch import api
+    from repro_torch.core import engine, placement, problem, profiler
+    from repro_torch.kernels import crms_grid
+
+    golden = json.loads(BASELINES_GOLDEN.read_text())
+    fleet_golden = json.loads(FLEET_GOLDEN.read_text())
+    t_phase = time.perf_counter()
+    crms_grid.launches = 0
+
+    # (a) Figs. 11-14
+    records, walls, peaks = run_baselines(api, problem, profiler)
+    assert_same(golden["fig11_14"], records, "baselines")
+    red = reductions_pct(records)
+    log("baselines", wall_s=walls, random_search_peak_bytes=peaks,
+        reduction_pct=red, mean_latency_s={k: mean_latency_s(r) for k, r in records.items()},
+        drf_stable=records["drf"]["stable"])
+    if min(red.values()) < MIN_REDUCTION_PCT:
+        raise AssertionError(f"baselines: CRMS cuts latency by {red} %, < {MIN_REDUCTION_PCT}")
+
+    # (b) search-sized scoring
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    search = search_record(api, profiler)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    assert_same(golden["search_mix16"], search, "baselines.search_mix16")
+    log("baselines", case="random_search_mix16", lanes=RS_SAMPLES * SEARCH_M, width=512,
+        wall_s=search_s, peak_bytes=torch.cuda.max_memory_allocated())
+
+    # (c) the fleet at the reference's full size
+    planner, cold, incr, numbers = run_fleet(placement)
+    parity = check_fleet(fleet_golden, planner, cold, incr, engine)
+    _, kernels, copies, busy_ms, wall_ms = profile_device(
+        lambda: planner._solve_nodes(range(planner.N)))
+    log("fleet", **numbers, parity_max_rel=parity, exchange_accepted=cold["diagnostics"][
+        "exchange_accepted"], solve_rows=planner.N, solve_device_kernels=kernels,
+        solve_copies=copies, solve_device_busy_ms=busy_ms, solve_wall_ms=wall_ms)
+
+    # (d) the migration scenario, the vector engine on the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    doc = fleet_scenario_doc(api)
+    scenario_s = time.perf_counter() - t0
+    assert_same(fleet_golden["scenario"], plain(doc), "fleet.scenario")
+    log("fleet-scenario", wall_s=scenario_s, **{k: doc["summary"][k] for k in (
+        "replan_time_s_mean", "nodes_solved_mean", "migrations_total",
+        "validation_gap_rel_mean", "all_nodes_ok")})
+
+    launches = crms_grid.launches
+    wall = time.perf_counter() - t_phase
+    res = {"launches": launches, "phase_wall_s": wall}
+    log("baselines", crms_grid_launches=launches, phase_wall_s=wall)
+    if launches == 0:
+        raise AssertionError("baselines: the crms solve never launched the crms_grid kernel")
+    if wall > BASELINES_LIMIT_S:
+        raise AssertionError(f"baselines: the phase took {wall:.1f} s > {BASELINES_LIMIT_S} s")
     return res
 
 
@@ -2074,6 +2417,10 @@ def main() -> int:
     # as long
     scenarios = scenario_phase()
 
+    # 19. the search baselines and the fleet placement layer against the
+    # reference's records, crms_grid counted from zero; also before any model
+    baselines = baselines_phase()
+
     # 6. flash kernel against its plain version
     flash_path = check_flash(4, 512, 512, 1, 8, 256, True, torch.bfloat16, timed=True)
     flash_f32 = check_flash(4, 512, 512, 1, 8, 256, True, torch.float32, timed=True)
@@ -2158,6 +2505,7 @@ def main() -> int:
         "crms_p95": {"launches": simulated["crms_p95"]["crms_grid_launches"],
                      "refine_iters": simulated["crms_p95"]["refine_iters"]},
         "scenarios": {"launches": scenarios["launches"], "replans": scenarios["replans"]},
+        "baselines": {"launches": baselines["launches"]},
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,

@@ -9,13 +9,16 @@
 Submodules:
     types        — SolverOptions, AllocRequest, AllocResult, Diagnostics
     registry     — Policy protocol, register_policy, get_policy, allocate
-    policies     — the built-ins: crms, crms_priority, crms_p95, robust_crms,
-                   robust_crms_p95, crms_lifecycle, robust_crms_lifecycle,
-                   crms_shed, crms_failover, predictive_crms
+    policies     — the built-ins: crms, crms_priority, crms_p95, the §VI
+                   baselines snfc1/2, random_search, gpbo, tpebo and drf,
+                   crms_fleet, robust_crms, robust_crms_p95, crms_lifecycle,
+                   robust_crms_lifecycle, crms_shed, crms_failover,
+                   predictive_crms
     quasidynamic — QuasiDynamicPolicy, the §V-B caching decorator, and
                    PredictivePolicy
-    scenario     — Scenario, events, ScenarioRunner (analytic and des
-                   backends), the BENCH_scenarios schema 2.5 gate
+    scenario     — Scenario/FleetScenario, events, ScenarioRunner (analytic
+                   and des backends), FleetScenarioRunner, the BENCH_scenarios
+                   schema 2.5 gate
 
 Exports resolve lazily (PEP 562): ``repro_torch.core.crms`` imports the
 contract types from here while ``repro_torch.api.policies`` imports the
@@ -71,6 +74,8 @@ _EXPORTS = {
     "CapResize": "repro_torch.api.scenario",
     "ContainerCrash": "repro_torch.api.scenario",
     "ContainerRepair": "repro_torch.api.scenario",
+    "FleetScenario": "repro_torch.api.scenario",
+    "FleetScenarioRunner": "repro_torch.api.scenario",
     "ScenarioEvent": "repro_torch.api.scenario",
     "validate_scenarios_doc": "repro_torch.api.scenario",
     "compact_scenarios_doc": "repro_torch.api.scenario",

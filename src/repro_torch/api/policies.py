@@ -1,6 +1,8 @@
 """Built-in allocation policies of the port, registered behind the one
 ``allocate(request) -> AllocResult`` contract: the paper's CRMS, its
-priority-weighted and tail-aware variants, the burstiness-robust ladder
+priority-weighted and tail-aware variants, the §VI baselines (``snfc1``,
+``snfc2``, ``random_search``, ``gpbo``, ``tpebo``, ``drf``), the fleet
+placement layer (``crms_fleet``), the burstiness-robust ladder
 (``robust_crms``, ``robust_crms_p95``), the switching-cost-aware lifecycle
 policies (``crms_lifecycle``, ``robust_crms_lifecycle``), graceful
 degradation (``crms_shed``), failure-aware hedging (``crms_failover``) and
@@ -18,6 +20,7 @@ import time
 
 from repro_torch.api.registry import register_policy
 from repro_torch.api.types import AllocRequest, AllocResult, Diagnostics
+from repro_torch.core import baselines
 from repro_torch.core.crms import crms
 from repro_torch.core.problem import Allocation
 
@@ -132,6 +135,164 @@ def crms_priority_policy(request: AllocRequest) -> AllocResult:
         device=request.device,
     )
     return _result(alloc, "crms_priority", t0, weights=dict(options.app_weights))
+
+
+def _snfc(request: AllocRequest, name: str, r_cpu_fixed: float, r_mem_fixed) -> AllocResult:
+    t0 = time.perf_counter()
+    kw = {"r_cpu_fixed": r_cpu_fixed, "r_mem_fixed": r_mem_fixed}
+    kw.update(request.extra)
+    alloc = baselines.snfc(request.apps, request.caps, request.alpha, request.beta,
+                           device=request.device, **kw)
+    return _result(alloc, name, t0)
+
+
+@register_policy("snfc1")
+def snfc1_policy(request: AllocRequest) -> AllocResult:
+    """Scale-number-fixed-config, paper SNFC1: c=1.8 cores, m=0.35 GB."""
+    return _snfc(request, "snfc1", 1.8, 0.35)
+
+
+@register_policy("snfc2")
+def snfc2_policy(request: AllocRequest) -> AllocResult:
+    """Scale-number-fixed-config, paper SNFC2: c=1.0 core, m=r_max."""
+    return _snfc(request, "snfc2", 1.0, "rmax")
+
+
+@register_policy("random_search")
+def random_search_policy(request: AllocRequest) -> AllocResult:
+    t0 = time.perf_counter()
+    kw = {"n_samples": 20000, "seed": request.seed}
+    kw.update(request.extra)
+    alloc = baselines.random_search(request.apps, request.caps, request.alpha, request.beta,
+                                    device=request.device, **kw)
+    return _result(alloc, "random_search", t0, n_samples=kw["n_samples"])
+
+
+@register_policy("gpbo")
+def gpbo_policy(request: AllocRequest) -> AllocResult:
+    t0 = time.perf_counter()
+    kw = {"seed": request.seed}
+    kw.update(request.extra)
+    alloc = baselines.gpbo(request.apps, request.caps, request.alpha, request.beta,
+                           device=request.device, **kw)
+    return _result(alloc, "gpbo", t0)
+
+
+@register_policy("tpebo")
+def tpebo_policy(request: AllocRequest) -> AllocResult:
+    t0 = time.perf_counter()
+    kw = {"seed": request.seed}
+    kw.update(request.extra)
+    alloc = baselines.tpebo(request.apps, request.caps, request.alpha, request.beta,
+                            device=request.device, **kw)
+    return _result(alloc, "tpebo", t0)
+
+
+@register_policy("drf")
+def drf_policy(request: AllocRequest) -> AllocResult:
+    """Dominant-resource-fairness progressive filling; may return unstable
+    allocations (the paper's APP2/APP4 pathology) — recorded honestly."""
+    t0 = time.perf_counter()
+    alloc = baselines.drf(request.apps, request.caps, request.alpha, request.beta,
+                          device=request.device)
+    return _result(alloc, "drf", t0)
+
+
+class CrmsFleetPolicy:
+    """Fleet-of-fleets placement (core.placement.FleetPlanner) behind the
+    allocation contract: apps spread across N nodes, per-node CRMS-style P1
+    inner allocations solved as one batched row solve on ``request.device``.
+
+    Fleet shape comes in through ``request.extra``:
+
+    node_caps       (required) sequence of (cpu, mem) pairs or ServerCaps
+    migrations      optional [(app_name, dst_node), ...] applied this epoch
+    exchange_rounds optional outer-refinement rounds on cold plans (default 2)
+    mesh            not available: the row solve runs on one device, and a
+                    mesh raises NotImplementedError
+
+    STATEFUL singleton like predictive_crms (self_caching): the first call
+    (or any change of app-name set / fleet shape / objective weights /
+    device) runs a cold plan — greedy placement + exchange + full row solve;
+    subsequent calls run the incremental re-plan, re-solving only the nodes
+    touched by λ drift and migrations. ``reset()`` drops the placement
+    state."""
+
+    self_caching = True
+
+    def __init__(self, name: str = "crms_fleet"):
+        self.name = name
+        self._planner = None
+        self._key = None
+
+    def reset(self) -> None:
+        self._planner = None
+        self._key = None
+
+    def allocate(self, request: AllocRequest) -> AllocResult:
+        from repro_torch.core.placement import FleetPlanner
+
+        t0 = time.perf_counter()
+        node_caps = request.extra.get("node_caps")
+        if node_caps is None:
+            raise ValueError("crms_fleet needs request.extra['node_caps']")
+        caps_key = tuple(
+            (float(c.r_cpu), float(c.r_mem)) if hasattr(c, "r_cpu") else (float(c[0]), float(c[1]))
+            for c in node_caps
+        )
+        key = (request.names(), caps_key, float(request.alpha), float(request.beta),
+               str(request.device))
+        migrations = tuple(request.extra.get("migrations", ()))
+        if self._planner is None or key != self._key:
+            self._planner = FleetPlanner(
+                request.apps,
+                node_caps,
+                alpha=request.alpha,
+                beta=request.beta,
+                exchange_rounds=int(request.extra.get("exchange_rounds", 2)),
+                mesh=request.extra.get("mesh"),
+                seed=request.seed,
+                device=request.device,
+            )
+            self._key = key
+            plan = self._planner.plan()
+            if migrations:
+                plan = self._planner.replan(migrations=migrations)
+        else:
+            plan = self._planner.replan(
+                lam={a.name: a.lam for a in request.apps},
+                migrations=migrations,
+            )
+        pl = self._planner
+        power_w = pl.power_span * plan.n * plan.r_cpu / pl.caps_cpu[plan.assignment]
+        ok = bool(plan.node_ok.all())
+        alloc = Allocation(
+            n=plan.n.copy(),
+            r_cpu=plan.r_cpu.copy(),
+            r_mem=plan.r_mem.copy(),
+            utility=plan.utility,
+            ws=plan.ws.copy(),
+            power_w=power_w,
+            feasible=ok,
+            stable=ok,
+            meta={
+                "diagnostics": dict(plan.diagnostics),
+                "assignment": plan.assignment.tolist(),
+                "node_utility": plan.node_utility.tolist(),
+            },
+        )
+        return _result(
+            alloc, self.name, t0,
+            cold=bool(plan.diagnostics.get("cold", False)),
+            width=plan.diagnostics.get("width"),
+            M_pad=plan.diagnostics.get("M_pad"),
+            nodes_failed=plan.diagnostics.get("nodes_failed", 0),
+            exchange_accepted=plan.diagnostics.get("exchange_accepted", 0),
+        )
+
+
+# Stateful like predictive_crms (see below): the placement state IS the value.
+register_policy("crms_fleet")(CrmsFleetPolicy())
 
 
 @register_policy("robust_crms")

@@ -14,6 +14,10 @@ schema. Every solve, every re-evaluation and the vector engine's replay run
 on the runner's ``device`` (None: the CUDA device, RuntimeError without
 one). ``validate_scenarios_doc`` is the dependency-free schema gate for such
 documents.
+
+``FleetScenario`` / ``FleetScenarioRunner`` carry the same timeline over a
+fleet of nodes through the ``crms_fleet`` placement policy, with app
+migrations and a per-epoch DES check of sampled nodes.
 """
 from __future__ import annotations
 
@@ -1111,6 +1115,187 @@ class ScenarioRunner:
             name: dict(p["summary"]) for name, p in doc["policies"].items()
         }
         return doc
+
+
+# ----------------------------------------------------------------------------
+# Fleet scenarios: multi-node traces with app migrations
+# ----------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class FleetScenario(Scenario):
+    """A Scenario over a fleet of nodes (the ``fleet_of_fleets`` problem
+    type): ``node_caps`` carries one (cpu, mem) budget per node, events may
+    include ``AppMigrate``, and ``validate_nodes`` nodes are sampled per
+    epoch for DES validation by the FleetScenarioRunner. The inherited
+    ``caps`` field stays the nominal single-node budget (unused by the fleet
+    policy but kept so the base timeline machinery — drift, λ events,
+    join/leave — applies verbatim)."""
+
+    node_caps: tuple = ()
+    validate_nodes: int = 4
+
+    @classmethod
+    def from_fleet(cls, name: str, n_nodes: int, apps_per_node: int, *, seed: int = 0, **kw):
+        """Build from placement.make_fleet's synthetic generator."""
+        from repro_torch.core.placement import make_fleet
+
+        apps, node_caps = make_fleet(n_nodes, apps_per_node, seed=seed)
+        caps = ServerCaps(
+            r_cpu=float(np.mean([c for c, _ in node_caps])),
+            r_mem=float(np.mean([m for _, m in node_caps])),
+        )
+        return cls(
+            name=name, apps=tuple(apps), caps=caps,
+            node_caps=tuple(node_caps), seed=seed, **kw,
+        )
+
+
+class FleetScenarioRunner:
+    """Drive the ``crms_fleet`` policy through a FleetScenario's timeline.
+
+    Each epoch forwards the fleet shape and that epoch's migrations through
+    ``request.extra`` and, when ``validate_nodes > 0``, replays a sampled
+    subset of nodes through the DES (des.validate_placement_sample) — the
+    per-epoch closed-loop check on the placement layer's Erlang-C inner
+    model. The sample is drawn deterministically from the scenario seed, so
+    replays validate the same nodes.
+
+    ``device`` goes into every AllocRequest (the row solves run on it) and
+    into the vector engine's replay; None means the CUDA device and raises
+    RuntimeError without one. The ``"event"`` engine is host code."""
+
+    def __init__(
+        self,
+        scenario: FleetScenario,
+        policy: str | Policy = "crms_fleet",
+        des_engine: str = "vector",
+        epoch_s: float = 60.0,
+        extra: Mapping[str, Any] | None = None,
+        device=None,
+    ):
+        resolve_device(device)  # no card and no device named: RuntimeError
+        if des_engine not in _DES_ENGINES:
+            raise ValueError(
+                f"des_engine must be one of {_DES_ENGINES}, got {des_engine!r}"
+            )
+        self.scenario = scenario
+        self.policy = get_policy(policy) if isinstance(policy, str) else policy
+        self.des_engine = des_engine
+        self.epoch_s = float(epoch_s)
+        self.extra = dict(extra or {})
+        self.device = device
+
+    def _sample_validation(self, planner, epoch: int) -> list[dict]:
+        from repro_torch.core.des import validate_placement_sample
+        from repro_torch.core.problem import service_rate
+
+        sc = self.scenario
+        k = min(int(sc.validate_nodes), planner.N)
+        if k <= 0:
+            return []
+        rng = np.random.default_rng(sc.seed * 100003 + epoch)
+        solved = np.where(planner.node_ok)[0]
+        if solved.size == 0:
+            return []
+        nodes = rng.choice(solved, size=min(k, solved.size), replace=False)
+        dev = resolve_device(self.device)
+        samples = []
+        for j in nodes:
+            on_j = np.where(planner.assignment == j)[0]
+            entries = []
+            for i in on_j:
+                app = planner.apps[int(i)].with_lam(float(planner.lam[i]))
+                mu = float(service_rate(app, float(planner.sol_c[i]), float(planner.sol_m[i]),
+                                        device=dev))
+                entries.append((app.name, app.lam, mu, int(planner.n[i])))
+            samples.append((int(j), entries))
+        return validate_placement_sample(
+            samples, horizon_s=self.epoch_s,
+            seed=sc.seed * 7919 + epoch, engine=self.des_engine, device=dev,
+        )
+
+    def run(self) -> dict:
+        sc = self.scenario
+        driver = self.policy
+        if hasattr(driver, "reset"):
+            driver.reset()
+        timeline = sc.timeline()
+        epochs = []
+        for state in timeline:
+            extra = dict(self.extra)
+            extra["node_caps"] = list(sc.node_caps)
+            extra["migrations"] = list(state.migrations)
+            request = AllocRequest(
+                apps=state.apps,
+                caps=state.caps,
+                alpha=sc.alpha,
+                beta=sc.beta,
+                options=sc.options,
+                seed=sc.seed,
+                extra=extra,
+                device=self.device,
+            )
+            t0 = time.perf_counter()
+            result = driver.allocate(request)
+            dt = time.perf_counter() - t0
+            d = result.diagnostics
+            validation = (
+                self._sample_validation(driver._planner, state.epoch)
+                if getattr(driver, "_planner", None) is not None
+                else []
+            )
+            gaps = [v["gap_rel"] for v in validation if v["gap_rel"] is not None]
+            epochs.append(
+                {
+                    "epoch": state.epoch,
+                    "events": list(state.events),
+                    "n_apps": len(state.apps),
+                    "wall_clock_s": dt,
+                    "utility": _num(result.allocation.utility),
+                    "cold": bool(d.extra.get("cold", False)),
+                    "nodes_total": int(d.nodes_total),
+                    "nodes_solved": int(d.nodes_solved),
+                    "migrations": int(d.migrations),
+                    "nodes_failed": int(d.extra.get("nodes_failed", 0)),
+                    "validated_nodes": len(validation),
+                    "validation_gap_rel_mean": float(np.mean(gaps)) if gaps else None,
+                    "validation": validation,
+                }
+            )
+        gaps = [
+            r["validation_gap_rel_mean"] for r in epochs
+            if r["validation_gap_rel_mean"] is not None
+        ]
+        incr = [r for r in epochs if not r["cold"]]
+        return {
+            "schema_version": "fleet-1",
+            "scenario": {
+                "name": sc.name,
+                "n_epochs": sc.n_epochs,
+                "n_nodes": len(sc.node_caps),
+                "n_apps_initial": len(sc.apps),
+                "alpha": sc.alpha,
+                "beta": sc.beta,
+                "validate_nodes": sc.validate_nodes,
+                "des_engine": self.des_engine,
+                "epoch_s": self.epoch_s,
+                "events": [
+                    {"epoch": ev.epoch, "event": _describe(ev)} for ev in sc.events
+                ],
+            },
+            "policy": self.policy.name,
+            "epochs": epochs,
+            "summary": {
+                "n_epochs": len(epochs),
+                "n_cold": sum(1 for r in epochs if r["cold"]),
+                "replan_time_s_mean": (
+                    float(np.mean([r["wall_clock_s"] for r in incr])) if incr else None
+                ),
+                "nodes_solved_mean": float(np.mean([r["nodes_solved"] for r in epochs])),
+                "migrations_total": int(sum(r["migrations"] for r in epochs)),
+                "validation_gap_rel_mean": float(np.mean(gaps)) if gaps else None,
+                "all_nodes_ok": all(r["nodes_failed"] == 0 for r in epochs),
+            },
+        }
 
 
 # ----------------------------------------------------------------------------

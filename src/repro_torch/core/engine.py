@@ -19,6 +19,10 @@ p1_solve_batch
 ideal_configs_batch
     Algorithm 1's inner solves — the SP1 bisection-on-dF/dc and the SP2
     integer argmin over Φ(N) — batched over apps.
+ip_solve_rows
+    The same interior point over a stack of FULL per-row problems (each row
+    its own packing, sentinel mask and budgets): the fleet placement layer's
+    inner engine.
 """
 from __future__ import annotations
 
@@ -122,8 +126,14 @@ def alpha_tensor(alpha, device):
 # P1 objective / barrier (Theorem 4) — batched over leading dimensions of x
 # ----------------------------------------------------------------------------
 def _split(x, packed):
-    M = packed["lam"].shape[0]
+    M = packed["lam"].shape[-1]  # the last axis: a row stack's fields are (N, M)
     return x[..., :M], x[..., M:]
+
+
+def _per_app(cap):
+    """A budget as a factor of per-app terms: a scalar as it is, a per-row
+    (N,) budget of the row-wise solve as (N, 1)."""
+    return cap[..., None] if isinstance(cap, torch.Tensor) and cap.ndim else cap
 
 
 def _mu(packed, c, m):
@@ -147,7 +157,7 @@ def p1_objective(x, packed, n, caps_cpu, caps_mem, power_span, alpha, beta,
         ws = queueing.erlang_wait_quantile(n_ws, lam, mu, q=tail_q, width=width)
     else:
         ws = queueing.erlang_ws(n_ws, lam, mu, width=width)
-    dp = power_span * n_eff * c / caps_cpu
+    dp = power_span * n_eff * c / _per_app(caps_cpu)
     terms = alpha * ws + beta * dp / packed["lam"]
     if mask is not None:
         terms = torch.where(mask > 0, terms, 0.0)
@@ -240,7 +250,7 @@ def _newton_direction_structured(x, t, packed, n, caps_cpu, caps_mem, power_span
                                                            width=width)
     else:
         _, ws1, ws2 = queueing.erlang_ws_derivs(n_ws, lam_b, mu, width=width)
-    P = beta * power_span * n_eff / (caps_cpu * lam)  # linear power slope in c
+    P = beta * power_span * n_eff / (_per_app(caps_cpu) * lam)  # linear power slope in c
 
     f_c = alpha * ws1 * mu_c + P
     f_m = alpha * ws1 * mu_m
@@ -303,12 +313,15 @@ def _newton_direction_dense(x, t, packed, n, caps_cpu, caps_mem, power_span, alp
     torch.func, damped, then a dense O((2M)³) solve. Kept for parity testing
     against the structured direction."""
 
-    def val(xx, nn):
-        return p1_barrier(xx, t, packed, nn, caps_cpu, caps_mem, power_span, alpha, beta,
-                          width, tail_q)[0]
+    def val(xx, nn, pk, cc, cm):
+        return p1_barrier(xx, t, pk, nn, cc, cm, power_span, alpha, beta, width, tail_q)[0]
 
-    g = torch.func.vmap(torch.func.grad(val))(x, n)
-    H = torch.func.vmap(torch.func.hessian(val))(x, n)
+    # a row stack maps every row's packing and budgets along with it
+    rowwise = packed["lam"].ndim > 1
+    in_dims = (0, 0) + ((0, 0, 0) if rowwise else (None, None, None))
+    args = (x, n, packed, caps_cpu, caps_mem)
+    g = torch.func.vmap(torch.func.grad(val), in_dims=in_dims)(*args)
+    H = torch.func.vmap(torch.func.hessian(val), in_dims=in_dims)(*args)
     H = H + _NEWTON_DAMP * torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     return torch.linalg.solve(H, g[..., None])[..., 0]
 
@@ -337,27 +350,36 @@ def _ip_core(x0, packed, n, caps_cpu, caps_mem, power_span, alpha, beta, n_outer
     K = alphas.shape[0]
     n_trial = n.repeat_interleave(K, dim=0)  # (B*K, M), row-major over (b, k)
     rows = torch.arange(B, device=x0.device)
+    if packed["lam"].ndim > 1:
+        # a row stack (``ip_solve_rows``): each row's packing, sentinel mask
+        # and budgets go along with its K trial steps
+        trial = {k: v.repeat_interleave(K, dim=0) for k, v in packed.items()}
+        cpu_trial = caps_cpu.repeat_interleave(K, dim=0)
+        mem_trial = caps_mem.repeat_interleave(K, dim=0)
+    else:
+        trial, cpu_trial, mem_trial = packed, caps_cpu, caps_mem
 
-    def val_fn(xx, nn, t):
-        return p1_barrier(xx, t, packed, nn, caps_cpu, caps_mem, power_span, alpha, beta,
-                          width, tail_q)[0]
+    def val_fn(xx, nn, t, pk, cc, cm):
+        return p1_barrier(xx, t, pk, nn, cc, cm, power_span, alpha, beta, width, tail_q)[0]
 
-    def feasible_cheap(xx, nn):
+    def feasible_cheap(xx, nn, pk, cc, cm):
         # slacks are linear/box terms, rho needs only the Eq. (1) latency
-        slacks = p1_slacks(xx, packed, nn, caps_cpu, caps_mem)
-        rho = p1_rho(xx, packed, nn)
+        slacks = p1_slacks(xx, pk, nn, cc, cm)
+        rho = p1_rho(xx, pk, nn)
         return torch.all(slacks > 0, dim=-1) & torch.all(rho < 1.0 - 1e-7, dim=-1)
 
     x = x0
     t = float(t0)
     for _ in range(n_outer):
-        cur = val_fn(x, n, t)  # the barrier value at x rides along the steps
+        # the barrier value at x rides along the steps
+        cur = val_fn(x, n, t, packed, caps_cpu, caps_mem)
         for _ in range(n_inner):
             dx = direction(x, t, packed, n, caps_cpu, caps_mem, power_span, alpha, beta,
                            width, tail_q)
             cands = (x[:, None, :] - alphas[:, None] * dx[:, None, :]).reshape(B * K, D)
-            feas = feasible_cheap(cands, n_trial)
-            v = torch.where(feas, val_fn(cands, n_trial, t), torch.inf).reshape(B, K)
+            feas = feasible_cheap(cands, n_trial, trial, cpu_trial, mem_trial)
+            v = torch.where(feas, val_fn(cands, n_trial, t, trial, cpu_trial, mem_trial),
+                            torch.inf).reshape(B, K)
             better = v < cur[:, None]
             found = better.any(dim=1)
             first = torch.argmax(better.to(torch.int8), dim=1)  # largest improving step
@@ -378,6 +400,53 @@ def _ip_solve_batched(x0, packed, n, caps_cpu, caps_mem, power_span, alpha, beta
     u = p1_objective(x, packed, n, caps_cpu, caps_mem, power_span, alpha, beta, width,
                      tail_q)
     return x, u
+
+
+# ----------------------------------------------------------------------------
+# Row-wise P1 solve — the fleet placement layer's inner engine
+# ----------------------------------------------------------------------------
+def p1_app_ws(x, packed, n, width: int | None = None):
+    """Per-app response times at a solution x (masked sentinel slots -> 0)."""
+    c, m = _split(x, packed)
+    mask = packed.get("mask")
+    _, n_ws = _mask_counts(packed, n)
+    mu = _mu(packed, c, m)
+    ws = queueing.erlang_ws(n_ws, packed["lam"].expand(mu.shape), mu, width=width)
+    return ws if mask is None else torch.where(mask > 0, ws, 0.0)
+
+
+def _rows_core(x0, packed_rows, n, caps_cpu, caps_mem, power_span, alpha, beta,
+               n_outer, n_inner, solver, t0, width):
+    """FULL per-row problems: unlike ``_ip_solve_batched`` (one shared
+    packing, many count vectors), every row here carries its own packed-field
+    stack AND its own (caps_cpu, caps_mem) budget — one row per fleet node.
+    Returns (x* (N, 2M), utility (N,), ws (N, M))."""
+    x = _ip_core(x0, packed_rows, n, caps_cpu, caps_mem, power_span, alpha, beta,
+                 n_outer, n_inner, solver=solver, t0=t0, width=width)
+    u = p1_objective(x, packed_rows, n, caps_cpu, caps_mem, power_span, alpha, beta, width)
+    ws = p1_app_ws(x, packed_rows, n, width)
+    return x, u, ws
+
+
+def ip_solve_rows(
+    x0, packed_rows, n, caps_cpu, caps_mem, power_span, alpha, beta,
+    n_outer=8, n_inner=3, solver="structured", t0=1.0, width=None,
+    mesh=None, mesh_axis: str = "nodes",
+):
+    """Public row-wise solver on the operands' device. All operands are
+    float64 tensors row-stacked along the leading node axis: x0 (N, 2M),
+    packed_rows a dict of (N, M)/(N, M, 3) tensors (plus the (N, M) "mask"
+    sentinel field), n (N, M), caps_cpu/caps_mem (N,); power_span/alpha/beta
+    are fleet-wide scalars. Returns (x* (N, 2M), utility (N,), ws (N, M)).
+    One card only: a ``mesh`` (the rows sharded over several devices) raises
+    NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"ip_solve_rows runs on one device; sharding the rows over a mesh "
+            f"(axis {mesh_axis!r}) is not available"
+        )
+    return _rows_core(x0, packed_rows, n, caps_cpu, caps_mem, power_span, alpha, beta,
+                      n_outer, n_inner, solver, t0, width)
 
 
 # ----------------------------------------------------------------------------

@@ -5,8 +5,9 @@ and the audio encoder-decoder), and training through them: gradients from
 the plain backwards of a kernel forward (flash against autograd through the
 naive oracle at the reference's 5e-5 / 5e-4 and 3e-2, SSD against the plain
 route within 2e-4 of the max), a train step's launches, the simulation's
-scans on the card against their host loop (bit for bit), and the smoke
-scenario trace on the card against the reference's document.
+scans on the card against their host loop (bit for bit), the smoke
+scenario trace on the card against the reference's document, and the fleet
+row solve and the search baselines on the card against the CPU.
 
 This file imports no JAX, so it also runs where only the port is installed:
 
@@ -417,15 +418,61 @@ def _chip_smoke():
 @pytest.mark.gpu
 def test_smoke_trace_on_the_card_matches_the_reference(cuda_device):
     """The smoke trace (join, cap resize, leave, drift; crms, predictive_crms,
-    crms_priority) through ScenarioRunner on the card (device None, des
+    crms_priority, drf) through ScenarioRunner on the card (device None, des
     backend, vector engine) against the reference's document in
     tests/data/torch_scenario_golden.json, as chip_smoke.py's phase 18 holds
     it: integers, booleans, strings and lists exactly, floats within rtol
-    1e-6, the wall clocks left out; at least one crms_grid launch a re-plan."""
+    1e-6, the wall clocks left out; at least one crms_grid launch a re-plan
+    through CRMS (drf's demands launch none)."""
     import json
 
     smoke = _chip_smoke()
     golden = json.loads(smoke.SCENARIO_GOLDEN.read_text())
     before = port_kernel.launches
     res = smoke.replay_trace("smoke", golden["traces"]["smoke"], None)
-    assert port_kernel.launches - before >= res["replans"] == 9
+    assert res["replans"] == 12
+    assert port_kernel.launches - before >= res["crms_replans"] == 9
+
+
+@pytest.mark.gpu
+def test_fleet_row_solve_on_the_card_matches_the_cpu(cuda_device):
+    """FleetPlanner at make_fleet(32, 8) on the card against the same planner
+    on the CPU: assignment and counts exactly, node utilities and quotas
+    within rtol 1e-9; the incremental re-plan likewise."""
+    from repro_torch.core.placement import FleetPlanner, make_fleet
+
+    apps, node_caps = make_fleet(32, 8, seed=4)
+    plans = []
+    for device in (None, "cpu"):
+        planner = FleetPlanner(apps, node_caps, device=device)
+        cold = planner.plan()
+        incr = planner.replan(lam={apps[0].name: apps[0].lam * 1.2},
+                              migrations=[(apps[1].name, 31)])
+        plans.append((cold, incr))
+    for card, cpu in zip(*plans):
+        assert np.array_equal(card.assignment, cpu.assignment)
+        assert np.array_equal(card.n, cpu.n)
+        np.testing.assert_allclose(card.node_utility, cpu.node_utility, rtol=1e-9)
+        np.testing.assert_allclose(card.r_cpu, cpu.r_cpu, rtol=1e-9)
+        np.testing.assert_allclose(card.r_mem, cpu.r_mem, rtol=1e-9)
+
+
+@pytest.mark.gpu
+def test_search_baselines_on_the_card_match_the_cpu(cuda_device):
+    """random_search, gpbo, tpebo and drf on the card (device None) against
+    the CPU on the same draws: counts and flags exactly, floats within rtol
+    1e-9."""
+    from repro_torch.core.problem import ServerCaps
+    from repro_torch.core.profiler import make_paper_apps
+
+    apps, caps = make_paper_apps(lam=(8, 7, 10, 15), fitted=False), ServerCaps(30.0, 10.0)
+    calls = (("random_search", {"n_samples": 4000}), ("gpbo", {"n_init": 8, "n_iters": 8}),
+             ("tpebo", {"n_init": 8, "n_iters": 8}), ("drf", {}))
+    for policy, extra in calls:
+        card, cpu = (allocate(policy, AllocRequest(apps, caps, seed=1, extra=extra,
+                                                   device=device)).allocation
+                     for device in (None, "cpu"))
+        assert np.array_equal(card.n, cpu.n), policy
+        assert (card.feasible, card.stable) == (cpu.feasible, cpu.stable), policy
+        np.testing.assert_allclose(card.r_cpu, cpu.r_cpu, rtol=1e-9, err_msg=policy)
+        np.testing.assert_allclose(card.r_mem, cpu.r_mem, rtol=1e-9, err_msg=policy)

@@ -38,11 +38,11 @@ CAPS = {"constrained": (30.0, 10.0), "roomy": (80.0, 32.0), "crunch": (4.0, 1.2)
 RATIOS = {"arrival_ratios": {"ResNet_v2": 2.0, "MobileNet_v2": 1.5}}
 LIFECYCLE = {"lifecycle": {"t_cold": 2.0}, "replan_horizon_s": 30.0}
 FAIL = {"failures": {"spec": {"mtbf": 120.0, "mttr": 10.0}, "down": {}, "t_cold": 1.0}}
-# the seven policies this slice adds, and the reference's that wait for the
-# search baselines and placement
+# the seven policies on the simulation; every policy of the reference is ported
+# (the search baselines and placement too), so none is left out
 NEW = ("robust_crms", "robust_crms_p95", "crms_lifecycle", "robust_crms_lifecycle",
        "crms_shed", "crms_failover", "predictive_crms")
-NOT_PORTED = {"snfc1", "snfc2", "random_search", "gpbo", "tpebo", "drf", "crms_fleet"}
+NOT_PORTED = set()
 # (policy, request extra), each at every caps point
 ROBUST_CASES = {
     "robust_crms": RATIOS,
@@ -141,6 +141,6 @@ def test_list_policies_is_the_reference_minus_the_unported():
     assert set(NEW) <= set(list_policies())
     assert set(list_policies()) == set(ref_list_policies()) - NOT_PORTED
     for name in ("crms_lifecycle", "robust_crms_lifecycle", "crms_failover",
-                 "predictive_crms"):
+                 "predictive_crms", "crms_fleet"):
         assert getattr(get_policy(name), "self_caching", False), name
         assert get_policy(name).name == name

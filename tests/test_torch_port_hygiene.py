@@ -134,7 +134,8 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.train.loop, repro_torch.train.step, repro_torch.train.optimizer, "
         "repro_torch.train.checkpoint, repro_torch.data.pipeline, repro_torch.core.des, "
         "repro_torch.core.des_vector, repro_torch.core.arrivals, repro_torch.core.failures, "
-        "repro_torch.core.lifecycle, repro_torch.api.scenario, repro_torch.api.quasidynamic; "
+        "repro_torch.core.lifecycle, repro_torch.api.scenario, repro_torch.api.quasidynamic, "
+        "repro_torch.core.baselines, repro_torch.core.placement; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -238,13 +239,29 @@ def test_entry_points_default_to_cuda(monkeypatch):
                             device="cpu")
     assert runner.device == "cpu"
 
+    # the search baselines and the fleet placement layer: their scoring, SP1
+    # demands and row solves run on the card by default
+    from repro_torch.api import FleetScenario, FleetScenarioRunner
+    from repro_torch.core.placement import FleetPlanner, make_fleet
+
+    for name, extra in (("random_search", {"n_samples": 10}), ("drf", {}),
+                        ("crms_fleet", {"node_caps": [(30.0, 10.0), (30.0, 10.0)]})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            allocate(name, AllocRequest(apps, caps, extra=extra))
+    fleet_apps, node_caps = make_fleet(2, 3, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetPlanner(fleet_apps, node_caps)
+    fleet = FleetScenario.from_fleet("f", 2, 3, n_epochs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetScenarioRunner(fleet)
+    assert FleetPlanner(fleet_apps, node_caps, device="cpu").device == torch.device("cpu")
+    assert FleetScenarioRunner(fleet, device="cpu").device == "cpu"
+
 
 def test_registry_lists_only_the_ported_policies():
-    """The reference's policies less the search baselines and the fleet
-    placement, which the port does not have yet."""
+    """Every policy of the reference is ported: the two registries list the
+    same names."""
     from repro.api import list_policies as ref_list_policies
     from repro_torch.api import list_policies
 
-    unported = {"snfc1", "snfc2", "random_search", "gpbo", "tpebo", "drf", "crms_fleet"}
-    assert unported <= set(ref_list_policies())
-    assert list_policies() == sorted(set(ref_list_policies()) - unported)
+    assert list_policies() == sorted(ref_list_policies())

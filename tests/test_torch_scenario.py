@@ -120,7 +120,7 @@ def trace_specs() -> dict:
                 {"kind": "CapResize", "epoch": 2, "r_cpu": 28.0, "r_mem": 9.5},
                 {"kind": "AppLeave", "epoch": 2, "name": "MobileNet_v2_burst"},
             ],
-            "runner": _runner(["crms", "predictive_crms", "crms_priority"]),
+            "runner": _runner(["crms", "predictive_crms", "crms_priority", "drf"]),
         },
         "azure_trace": {
             "source": "benchmarks/burst_robustness.py:99-108 trace_leg",
@@ -181,11 +181,9 @@ def crunch_spec() -> dict:
 
 
 def test_exports_match_the_reference():
-    """``repro_torch.api`` exports the reference's names but the fleet
-    scenario classes (they wait for placement), plus ``crms_p95_policy``;
-    every name resolves."""
-    fleet = {"FleetScenario", "FleetScenarioRunner"}
-    assert set(port_api.__all__) == (set(ref_api.__all__) - fleet) | {"crms_p95_policy"}
+    """``repro_torch.api`` exports the reference's names, the fleet scenario
+    classes among them, plus ``crms_p95_policy``; every name resolves."""
+    assert set(port_api.__all__) == set(ref_api.__all__) | {"crms_p95_policy"}
     for name in port_api.__all__:
         assert getattr(port_api, name) is not None, name
 
@@ -364,8 +362,11 @@ def check_smoke(run):
         port_api.validate_scenarios_doc(doc)
     pols = port["policies"]
     assert [r["M"] for r in pols["crms"]["epochs"]] == [3, 4, 3]
-    assert all(p["summary"]["all_feasible"] and p["summary"]["all_stable"]
-               for p in pols.values())
+    assert sorted(pols) == ["crms", "crms_priority", "drf", "predictive_crms"]
+    assert all(p["summary"]["all_feasible"] for p in pols.values())
+    # DRF ignores queue stability (the paper's APP2/APP4 pathology), so the
+    # stability gate holds the CRMS policies, as benchmarks/scenarios.py does
+    assert all(p["summary"]["all_stable"] for name, p in pols.items() if name != "drf")
 
 
 def test_smoke_document_matches_reference():
