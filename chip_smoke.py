@@ -219,6 +219,47 @@ is non-zero:
                migration scenario (4 epochs, the vector engine on the card)
                equal to the reference's document but for the wall clocks.
                The phase within 120 s.
+ 20. fleet-binding — (right after phase 19) the TPU-fleet binding on the
+               card (device None) against
+               tests/data/torch_fleet_binding_golden.json (the reference on
+               the CPU): (a) default_workloads() and the profile data equal
+               the reference's bit for bit; FleetManager(n_chips=256)'s fit of
+               each of the ten architectures with an rmse at most 2e-3
+               relative above the reference's and its Eq. (1) surface within
+               5e-2 of the reference's on a 64 x 64 grid of the box (c in [1,
+               256], m in [r_min, r_max]); (b) the plan on the reference's κ
+               (put in after construction, the quasi-dynamic cache reset):
+               the port's Ws and utility at the reference's quotas within
+               their rounding envelope (Eq. (1)'s 1 - exp(-κ₂c) cancels at
+               κ₂c ~ 1e-14, where the packages' exp differ by an ulp:
+               check_fleet_eval); counts, flags and counters (refinement
+               iterations, accepted moves, P1 calls, masked rows) equal,
+               utility within rtol 2e-5, quotas and the replica groups'
+               chips and HBM within 5e-2, each Ws within that or its
+               envelope, slots within 5 % + 1 (check_fleet_record), at
+               least one crms_grid launch per refinement iteration; (c) the
+               plan on the
+               card's own fit: the reference's counts, utility within rtol
+               1e-4, within the pod, one group per container, every group >= 1
+               slot; (d) drift x1.03 then x1.6: a re-plan only at x1.6, held
+               as in (b); (e) launch.serve --plan and
+               examples_torch/serve_multitenant.py: their plans equal (c)'s,
+               both reduced tenants finish every request; (f)
+               benchmarks_torch/fleet_tpu.py's comparison (crms, random_search
+               with 20000 samples, tpebo) on the reference's κ: records held
+               as in (b), CRMS's mean latency <= both baselines'. Wall clocks of the fit,
+               the cold plan and the re-plan, crms_grid launches; the phase
+               within 90 s.
+ 21. codeqwen — (after phase 12) codeqwen1.5-7b at full width and depth
+               (random bf16 weights from the seeded generator, the card freed
+               before and after): one group of 4 requests of 512 tokens, 16
+               new tokens each; the realized parameter count equal to the
+               config's, 32 flash launches, every request finished with
+               in-vocabulary tokens, prefill logits through the kernel within
+               3e-2 of the plain version's; prefill and decode-step times,
+               tokens/s, peak memory; the phase within 120 s. Phase 6 checks
+               the flash kernel at its shape (4, 512, 512, 32, 1, 128) causal
+               in bf16 (timed, the kernels line's "codeqwen" entry) and f32.
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
@@ -283,6 +324,12 @@ MOE_NEW = AUDIO_NEW = 16
 AUDIO_FRAMES = 128
 # flash shapes (B, Sq, Skv, KV, G, hd, causal) of those paths
 MOE_FLASH = (SLOTS, PROMPT_LEN, PROMPT_LEN, 16, 1, 128, True)
+# codeqwen1.5-7b at full width (phase 21): one Engine group of SLOTS requests
+# of PROMPT_LEN tokens, CODE_NEW new each, as moonshot's phase
+CODE_ARCH = "codeqwen1.5-7b"
+CODE_NEW = 16
+CODE_FLASH = (SLOTS, PROMPT_LEN, PROMPT_LEN, 32, 1, 128, True)
+CODE_LIMIT_S = 120.0
 # training (phases 13-16): TRAIN_STEPS steps at full width, gemma-2b at
 # GEMMA_TRAIN (B, S) in its 4 microbatches (attention (2, 256, 256, 1, 8, 256)
 # each), mamba2-130m at MAMBA_TRAIN (two chunks of 256); the flash gradient
@@ -827,18 +874,19 @@ def kernel_vs_plain(arch, got, want):
     return err, float((got.argmax(-1) == want.argmax(-1)).float().mean())
 
 
-def serve_full(arch, kernel, kernel_times, phase):
-    """``arch`` at full width on the card; returns the launches of
-    ``kernel`` (the flash_attention or ssd module, one launch per layer per
-    prefill) in the Engine's run (the serving path, counted from zero).
-    ``kernel_times`` holds the kernel's ``ms`` and ``graph_ms`` at the
-    path's shape, from which its share of a prefill is reported."""
+def serve_full(arch, kernel, kernel_times, phase, n_req=N_REQUESTS, max_new=MAX_NEW):
+    """``arch`` at full width on the card, ``n_req`` requests of
+    ``max_new`` new tokens; returns the launches of ``kernel`` (the
+    flash_attention or ssd module, one launch per layer per prefill) in the
+    Engine's run (the serving path, counted from zero). ``kernel_times``
+    holds the kernel's ``ms`` and ``graph_ms`` at the path's shape, from
+    which its share of a prefill is reported."""
     from repro_torch.models.layers import Runtime
     from repro_torch.models.model import init_cache
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.serve.step import make_decode_step, make_prefill_step
 
-    n_req, prompt_len, max_new, slots, max_len = N_REQUESTS, PROMPT_LEN, MAX_NEW, SLOTS, MAX_LEN
+    prompt_len, slots, max_len = PROMPT_LEN, SLOTS, MAX_LEN
     kname = kernel.__name__.rsplit(".", 1)[1]
     cfg, lm, init_s = init_full(arch)
     rt = Runtime("cuda", torch.bfloat16, "auto")
@@ -975,6 +1023,25 @@ def serve_moe_full():
         prefill_ms=prefill_ms, decode_step_ms=decode_ms, flash_attention_launches=launches,
         max_memory_allocated_gb=peak / 1e9, logits_rel_err_vs_plain=err,
         top1_agreement_vs_plain=top1, **routes, phase_wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def serve_code_full(kernel_times):
+    """Phase 21: codeqwen1.5-7b at full width and depth (random bf16 weights
+    from the seeded generator) through the Engine, one group of SLOTS
+    requests, on a card freed of the earlier models before and after.
+    Returns the flash launches of the Engine's run, counted from zero."""
+    from repro_torch.kernels import flash_attention
+
+    t_phase = time.perf_counter()
+    held_gb = free_card() / 1e9
+    launches = serve_full(CODE_ARCH, flash_attention, kernel_times, "codeqwen", n_req=SLOTS,
+                          max_new=CODE_NEW)
+    free_card()
+    wall = time.perf_counter() - t_phase
+    log("codeqwen", held_before_gb=held_gb, phase_wall_s=wall)
+    if wall > CODE_LIMIT_S:
+        raise AssertionError(f"codeqwen: the phase took {wall:.1f} s > {CODE_LIMIT_S} s")
     return launches
 
 
@@ -1818,24 +1885,24 @@ def plain(obj):
     return obj
 
 
-def assert_same(ref, got, path="$"):
+def assert_same(ref, got, path="$", rtol=SCENARIO_RTOL):
     """Field by field: integers, booleans, strings, None and lists exactly,
-    floats within SCENARIO_RTOL, the keys in SCENARIO_SKIP left out. Both
-    sides JSON-shaped (``plain``)."""
+    floats within ``rtol``, the keys in SCENARIO_SKIP left out. Both sides
+    JSON-shaped (``plain``)."""
     if isinstance(ref, dict):
         if not (isinstance(got, dict) and set(got) == set(ref)):
             raise AssertionError(f"{path}: keys {sorted(got)} != reference {sorted(ref)}")
         for k in ref:
             if k not in SCENARIO_SKIP:
-                assert_same(ref[k], got[k], f"{path}.{k}")
+                assert_same(ref[k], got[k], f"{path}.{k}", rtol)
     elif isinstance(ref, list):
         if not (isinstance(got, list) and len(got) == len(ref)):
             raise AssertionError(f"{path}: {got!r} != reference {ref!r}")
         for i, (a, b) in enumerate(zip(ref, got)):
-            assert_same(a, b, f"{path}[{i}]")
+            assert_same(a, b, f"{path}[{i}]", rtol)
     elif isinstance(ref, float) and isinstance(got, (int, float)) and not isinstance(got, bool):
-        if not abs(got - ref) <= SCENARIO_RTOL * abs(ref):
-            raise AssertionError(f"{path}: {got!r} != reference {ref!r} (rtol {SCENARIO_RTOL})")
+        if not abs(got - ref) <= rtol * abs(ref):
+            raise AssertionError(f"{path}: {got!r} != reference {ref!r} (rtol {rtol})")
     elif not (type(got) is type(ref) and got == ref):
         raise AssertionError(f"{path}: {got!r} != reference {ref!r}")
 
@@ -2328,6 +2395,371 @@ def baselines_phase():
     return res
 
 
+# ----------------------------------------------------------------------------
+# The TPU-fleet binding (phase 20)
+# ----------------------------------------------------------------------------
+FLEET_BINDING_GOLDEN = ROOT / "tests" / "data" / "torch_fleet_binding_golden.json"
+FLEET_CHIPS = 256
+FLEET_ALPHA, FLEET_BETA = 1.4, 0.2  # FleetManager's defaults (paper §VI)
+FLEET_DRIFT = (1.03, 1.6)  # observed in turn: below, then past the 0.15 threshold
+FIT_RMSE_REL = 2e-3  # a fit's rmse at most this far (relative) above the reference's
+FIT_SURFACE_REL = 5e-2  # a fitted surface within this of the reference's on the box
+FIT_GRID = 64  # the box's grid: c in [1, 256] chips, m in [r_min, r_max] GB
+OWN_FIT_UTILITY_RTOL = 1e-4  # the plan on the port's own fit
+# Records on the reference's κ. Eq. (1) evaluates 1 - exp(-κ₂c) with κ₂c
+# down to ~5e-15 (gemma-2b, mamba2-130m at one chip), where one ulp of exp
+# moves d by up to ~2e-2 relative; the reference's exp (XLA's) and torch's
+# differ by one ulp on about a tenth of such arguments. Two checks:
+# - the port's evaluation at the reference's quotas: each app's Ws and the
+#   utility within their rounding envelope, how far moving every app's
+#   1 - exp(-κ₂c) by EXP_ULPS ulps either way moves them (at least
+#   EVAL_FLOOR, the rest of the evaluation's rounding);
+# - the port's own solve: counts, flags and counters exactly, the utility
+#   within FLEET_UTILITY_RTOL, quotas and the replica groups' chips and HBM
+#   within FLEET_FLOAT_RTOL, each Ws within that or its envelope, batch
+#   slots within that share plus one. The largest gaps measured: utility
+#   7.5e-6 and quotas 1.7e-2 on the CPU, 1.8e-6 and 1.5e-2 on an H100 (a
+#   solve's rounding moves the flat directions of P1; ROADMAP Queue 3).
+EXP_ULPS = 2  # one ulp of each package's exp
+EVAL_FLOOR = 1e-9
+FLEET_UTILITY_RTOL = 2e-5
+FLEET_FLOAT_RTOL = 5e-2
+FLEET_BINDING_LIMIT_S = 90.0
+
+
+def load_script(relpath):
+    """A script of the checkout (an example or a benchmark) as a module."""
+    import importlib.util
+
+    path = ROOT / relpath
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def eq1_np(kappa, c, m):
+    """Eq. (1) in NumPy float64, 1 - exp(-κ₂c) as -expm1: κ₂c reaches ~5e-15
+    on the fleet's box, where the subtraction keeps about two digits."""
+    k1, k2, k3 = kappa
+    return k1 / -np.expm1(-k2 * np.asarray(c, float)) + np.exp(k3 / np.asarray(m, float))
+
+
+def fit_rmse(kappa, profile):
+    """A fleet fit's rmse on its profile data (the quantity fit_family
+    minimizes), from κ alone."""
+    resid = eq1_np(kappa, profile["cs"], profile["ms"]) - np.asarray(profile["d"])
+    return float(np.sqrt(np.mean(resid ** 2)))
+
+
+def fit_surface(kappa, app):
+    """Eq. (1) at ``kappa`` on the FIT_GRID x FIT_GRID grid of the app's box."""
+    c = np.linspace(1.0, app["cpu_max"], FIT_GRID)[:, None]
+    m = np.linspace(app["r_min"], app["r_max"], FIT_GRID)[None, :]
+    return eq1_np(kappa, c, m)
+
+
+def fleet_plan_record(alloc, groups, diagnostics=None) -> dict:
+    """The comparison record of a FleetManager plan: the allocation, the
+    replica groups and, when given, the solve's counters."""
+    record = {"n": alloc.n, "r_cpu": alloc.r_cpu, "r_mem": alloc.r_mem, "ws": alloc.ws,
+              "utility": alloc.utility, "feasible": alloc.feasible, "stable": alloc.stable,
+              "groups": [[g.arch, g.chips, g.hbm_gb, g.batch_slots] for g in groups]}
+    if diagnostics is not None:
+        record.update({key: getattr(diagnostics, key) for key in (
+            "refine_iters", "accepted_moves", "p1_calls", "p1_masked_rows")})
+    return plain(record)
+
+
+def rounding_envelope(apps, record, caps, device=None):
+    """The port's Ws and utility at ``record``'s quotas on ``device``, and
+    how far moving each app's 1 - exp(-κ₂c) by EXP_ULPS ulps (of the doubles
+    just below 1) either way moves them, relative and at least EVAL_FLOOR:
+    (ws, utility, ws bars, utility bar), non-finite values as None."""
+    from repro_torch.core.problem import utility
+
+    def at(sign):
+        bent = [dataclasses.replace(a, kappa=(a.kappa[0], a.kappa[1] + sign * EXP_ULPS
+                                              * 2.0 ** -53 / c, a.kappa[2]))
+                for a, c in zip(apps, record["r_cpu"])]
+        u, ws, _ = utility(bent, record["n"], record["r_cpu"], record["r_mem"], caps,
+                           FLEET_ALPHA, FLEET_BETA, device=device)
+        return np.asarray(ws.tolist() + [u])
+
+    values = at(0)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        env = np.maximum(np.abs(at(1) / values - 1), np.abs(at(-1) / values - 1))
+    bars = [max(EVAL_FLOOR, float(e)) if np.isfinite(v) else None for v, e in zip(values, env)]
+    values = plain(values)
+    return values[:-1], values[-1], bars[:-1], bars[-1]
+
+
+def check_fleet_eval(ref, apps, caps, path, device=None):
+    """The port's evaluation at the reference's quotas: each app's Ws and
+    the utility within their rounding envelope of the reference's, the
+    non-finite ones on the same apps. Returns (the Ws bars, the largest
+    gaps and the largest gap's share of its bar)."""
+    ws, u, ws_bars, u_bar = rounding_envelope(apps, ref, caps, device)
+    gaps = {"ws": 0.0, "utility": None, "of_bar": 0.0}
+    names = [a.name for a in apps] + ["utility"]
+    for name, r, g, bar in zip(names, ref["ws"] + [ref["utility"]], ws + [u], ws_bars + [u_bar]):
+        if (r is None) != (g is None):
+            raise AssertionError(f"{path}: {name} evaluated at the reference's quotas: {g!r} != "
+                                 f"reference {r!r}")
+        if r is None:
+            continue
+        gap = abs(g / r - 1)
+        if not gap <= bar:
+            raise AssertionError(f"{path}: {name} evaluated at the reference's quotas: {g!r} != "
+                                 f"reference {r!r} ({gap:.3g} > its rounding envelope {bar:.3g})")
+        if name == "utility":
+            gaps["utility"] = gap
+        else:
+            gaps["ws"] = max(gaps["ws"], gap)
+        gaps["of_bar"] = max(gaps["of_bar"], gap / bar)
+    return ws_bars, gaps
+
+
+def check_fleet_record(ref, got, path, apps, caps, device=None):
+    """A plan or baseline record ``got`` of the port on the reference's κ
+    (``apps``, at the record's λ) against the reference's ``ref``: the
+    port's evaluation at the reference's quotas (check_fleet_eval on
+    ``device``); counts, flags, counters, the replica groups' archs and
+    which floats are non-finite exactly; the utility within
+    FLEET_UTILITY_RTOL; quotas and the groups' chips and HBM within
+    FLEET_FLOAT_RTOL, each Ws within that or its rounding envelope, batch
+    slots within that share plus one. Returns the largest gaps."""
+    if set(got) != set(ref):
+        raise AssertionError(f"{path}: keys {sorted(got)} != reference {sorted(ref)}")
+    ws_bars, gaps = check_fleet_eval(ref, apps, caps, path, device)
+    floats = ("utility", "r_cpu", "r_mem", "ws", "groups")
+    assert_same({k: v for k, v in ref.items() if k not in floats},
+                {k: v for k, v in got.items() if k not in floats}, path)
+    if ref["utility"] is None or got["utility"] is None:
+        assert_same(ref["utility"], got["utility"], f"{path}.utility")
+    else:
+        assert_same(ref["utility"], got["utility"], f"{path}.utility", FLEET_UTILITY_RTOL)
+    gap = 0.0
+    for key in ("r_cpu", "r_mem"):
+        assert_same(ref[key], got[key], f"{path}.{key}", FLEET_FLOAT_RTOL)
+        gap = max([gap] + [abs(g / r - 1) for r, g in zip(ref[key], got[key])])
+    for i, (r, g, bar) in enumerate(zip(ref["ws"], got["ws"], ws_bars)):
+        if r is None or g is None:
+            assert_same(r, g, f"{path}.ws[{i}]")
+        else:
+            assert_same(r, g, f"{path}.ws[{i}]", max(FLEET_FLOAT_RTOL, bar))
+            gap = max(gap, abs(g / r - 1))
+    if "groups" in ref:
+        if len(got["groups"]) != len(ref["groups"]):
+            raise AssertionError(f"{path}: {len(got['groups'])} replica groups, reference "
+                                 f"{len(ref['groups'])}")
+        for i, (r, g) in enumerate(zip(ref["groups"], got["groups"])):
+            assert_same(r[:3], g[:3], f"{path}.groups[{i}]", FLEET_FLOAT_RTOL)
+            if not abs(g[3] - r[3]) <= FLEET_FLOAT_RTOL * r[3] + 1:
+                raise AssertionError(f"{path}.groups[{i}]: {g[3]} batch slots, reference {r[3]}")
+    return {"float_gap": gap, "utility_gap": (None if ref["utility"] is None else
+                                              abs(got["utility"] / ref["utility"] - 1)),
+            **{f"eval_{k}_gap": v for k, v in gaps.items()}}
+
+
+def fleet_plan(fm):
+    """``fm.plan()``: (its record, wall clock, crms_grid launches; the
+    launches count only on the card, and a re-optimized plan launches at
+    least one a refinement iteration)."""
+    from repro_torch.kernels import crms_grid
+
+    kw = {"device": fm.device}
+    before = crms_grid.launches
+    _sync(kw)
+    t0 = time.perf_counter()
+    alloc, groups = fm.plan()
+    _sync(kw)
+    wall = time.perf_counter() - t0
+    record = fleet_plan_record(alloc, groups, fm.last_result.diagnostics)
+    launches = crms_grid.launches - before
+    solved = not fm.last_result.diagnostics.cache_hit
+    if _on_card(kw) and solved and launches < record["refine_iters"]:
+        raise AssertionError(f"fleet: {launches} crms_grid launches < "
+                             f"{record['refine_iters']} refinement iterations")
+    return record, wall, launches
+
+
+def fleet_binding_drift(fm):
+    """Observe FLEET_DRIFT in turn and plan after each: ([re-optimized per
+    step], the last plan's record, its wall clock and crms_grid launches)."""
+    flags = []
+    for scale in FLEET_DRIFT:
+        fm.observe({a.name: a.lam * scale for a in fm.apps})
+        before = fm.allocator.reoptimizations
+        record, wall, launches = fleet_plan(fm)
+        flags.append(fm.allocator.reoptimizations > before)
+    return flags, record, wall, launches
+
+
+def check_fleet_fit(golden, fm, fleet):
+    """(a) the workloads and the profile data equal the reference's bit for
+    bit; each of ``fm``'s fits within FIT_RMSE_REL of the reference's rmse
+    and FIT_SURFACE_REL of its surface. Returns {name: (rmse excess, surface
+    gap)}."""
+    workloads = [plain(dataclasses.asdict(w)) for w in fleet.default_workloads()]
+    if workloads != golden["workloads"]:
+        raise AssertionError("fleet: default_workloads() differs from the reference's")
+    out = {}
+    for i, (w, ref_app, app) in enumerate(zip(fm.workloads, golden["apps"], fm.apps)):
+        profile = golden["profiles"][i]
+        cs, ms, d = fleet.profile_workload(w, seed=i)
+        if [cs.tolist(), ms.tolist(), d.tolist()] != [profile["cs"], profile["ms"], profile["d"]]:
+            raise AssertionError(f"fleet: {w.name}'s profile data differ from the reference's")
+        ref_rmse = fit_rmse(ref_app["kappa"], profile)
+        excess = (fit_rmse(app.kappa, profile) - ref_rmse) / ref_rmse
+        want = fit_surface(ref_app["kappa"], ref_app)
+        gap = float(np.max(np.abs(fit_surface(app.kappa, ref_app) - want) / np.abs(want)))
+        out[w.name] = (excess, gap)
+        if not (excess <= FIT_RMSE_REL and gap <= FIT_SURFACE_REL):
+            raise AssertionError(f"fleet: {w.name}'s fit: rmse {excess:+.3g} relative to the "
+                                 f"reference's (bar {FIT_RMSE_REL}), surface gap {gap:.3g} "
+                                 f"(bar {FIT_SURFACE_REL})")
+    return out
+
+
+def check_own_plan(golden, record, caps):
+    """(c) a plan on the port's own fit: the reference's counts, utility
+    within OWN_FIT_UTILITY_RTOL, and tests/test_fleet_engine.py's asserts."""
+    ref = golden["plan"]
+    n = np.asarray(record["n"])
+    if record["n"] != ref["n"]:
+        raise AssertionError(f"fleet: own-fit counts {record['n']} != reference {ref['n']}")
+    if not abs(record["utility"] - ref["utility"]) <= OWN_FIT_UTILITY_RTOL * abs(ref["utility"]):
+        raise AssertionError(f"fleet: own-fit utility {record['utility']} != reference "
+                             f"{ref['utility']} (rtol {OWN_FIT_UTILITY_RTOL})")
+    total_cpu = float(np.sum(n * np.asarray(record["r_cpu"])))
+    total_mem = float(np.sum(n * np.asarray(record["r_mem"])))
+    if not (total_cpu <= caps.r_cpu * 1.001 and total_mem <= caps.r_mem * 1.001):
+        raise AssertionError(f"fleet: the plan takes {total_cpu} chips, {total_mem} GB")
+    groups = record["groups"]
+    if len(groups) != int(n.sum()) or not all(g[3] >= 1 for g in groups):
+        raise AssertionError(f"fleet: {len(groups)} replica groups for N = {n.tolist()}")
+
+
+def run_fleet_binding(golden, device=None):
+    """(a)-(d) on ``device`` (None: the CUDA device): the fit of
+    FleetManager(n_chips=256), the plan on the port's own fit, the plan on
+    the reference's κ (put in after construction, as observe does, with the
+    quasi-dynamic cache reset), and the drift sequence from there. Returns
+    (own-fit record, numbers)."""
+    from repro_torch.core import fleet
+    from repro_torch.core.engine import PackedApps
+    from repro_torch.core.problem import App
+    from repro_torch.serve.fleet import FleetManager
+
+    _sync({"device": device})
+    t0 = time.perf_counter()
+    fm = FleetManager(n_chips=FLEET_CHIPS, device=device)
+    _sync({"device": device})
+    fit_s = time.perf_counter() - t0
+    fits = check_fleet_fit(golden, fm, fleet)
+
+    # (c) the plan on the port's own fit
+    own, own_s, _ = fleet_plan(fm)
+    check_own_plan(golden, own, fm.caps)
+
+    # (b) the plan on the reference's κ, cold
+    fm.apps = [App(**{**a, "kappa": tuple(a["kappa"])}) for a in golden["apps"]]
+    fm.packed = PackedApps.from_apps(fm.apps)
+    fm.allocator.reset()
+    plan, plan_s, plan_launches = fleet_plan(fm)
+    plan_gaps = check_fleet_record(golden["plan"], plan, "fleet.plan", fm.apps, fm.caps, device)
+
+    # (d) drift: x1.03 stays on the cached plan, x1.6 re-plans (warm)
+    flags, drifted, replan_s, replan_launches = fleet_binding_drift(fm)
+    if flags != golden["drift"]["reoptimized"]:
+        raise AssertionError(f"fleet: re-optimized {flags} under drift {FLEET_DRIFT}, "
+                             f"reference {golden['drift']['reoptimized']}")
+    replan_gaps = check_fleet_record(golden["drift"]["plan"], drifted, "fleet.drift", fm.apps,
+                                     fm.caps, device)
+    numbers = {"fit_s": fit_s, "own_fit_plan_s": own_s, "cold_plan_s": plan_s,
+               "replan_s": replan_s, "refine_iters": plan["refine_iters"],
+               "replan_refine_iters": drifted["refine_iters"],
+               "plan_crms_grid_launches": plan_launches,
+               "replan_crms_grid_launches": replan_launches,
+               "fit_rmse_excess_max": max(e for e, _ in fits.values()),
+               "fit_surface_gap_max": max(g for _, g in fits.values()),
+               "own_fit_utility": own["utility"], "plan_utility": plan["utility"],
+               "reference_utility": golden["plan"]["utility"], "plan_gaps": plan_gaps,
+               "replan_gaps": replan_gaps}
+    return own, numbers
+
+
+def check_fleet_launchers(own, device=None):
+    """(e) ``launch.serve --plan`` and examples_torch/serve_multitenant on
+    ``device``: both plans equal the own-fit plan ``own``, the drift flags
+    [False, True], and both reduced tenants finish every request with
+    in-vocabulary tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+
+    argv = [] if device is None else ["--device", str(device)]
+    fm, alloc, groups = serve.main(["--plan", *argv])
+    assert_same(own, fleet_plan_record(alloc, groups, fm.last_result.diagnostics),
+                "fleet.launcher")
+    demo = load_script("examples_torch/serve_multitenant.py")
+    out = demo.main(argv)
+    got = fleet_plan_record(out["alloc"], out["groups"])
+    assert_same({key: own[key] for key in got}, got, "serve_multitenant.plan")
+    if out["reoptimized"] != [False, True]:
+        raise AssertionError(f"serve_multitenant: re-optimized {out['reoptimized']}")
+    for arch in demo.TENANTS:
+        vocab = get_config(arch).reduced().vocab
+        served = out["served"][arch]
+        if sorted(served) != [0, 1, 2] or not all(
+                len(t) == 6 and all(0 <= x < vocab for x in t) for t in served.values()):
+            raise AssertionError(f"serve_multitenant: {arch} served {served}")
+    return {"replica_groups": len(groups),
+            "tenant_requests": {arch: len(out["served"][arch]) for arch in demo.TENANTS}}
+
+
+def check_fleet_tpu(golden, device=None):
+    """(f) benchmarks_torch/fleet_tpu.py's comparison on the reference's κ:
+    the records equal the reference's, CRMS's mean latency <= both
+    baselines'. Returns the mean latencies and wall clocks."""
+    from repro_torch.core import fleet
+    from repro_torch.core.problem import App
+
+    bench = load_script("benchmarks_torch/fleet_tpu.py")
+    apps = [App(**{**a, "kappa": tuple(a["kappa"])}) for a in golden["apps"]]
+    caps = fleet.pod_caps(FLEET_CHIPS)
+    records, walls = bench.compare(apps, caps, device=device)
+    if set(records) != set(golden["fleet_tpu"]):
+        raise AssertionError(f"fleet_tpu: policies {sorted(records)}")
+    gaps = {key: check_fleet_record(golden["fleet_tpu"][key], records[key], f"fleet_tpu.{key}",
+                                    apps, caps, device) for key in records}
+    latency = {key: bench.mean_latency(apps, r) for key, r in records.items()}
+    if not latency["crms"] <= min(latency["random_search"], latency["tpebo"]):
+        raise AssertionError(f"fleet_tpu: CRMS's mean latency is not the lowest: {latency}")
+    return {"mean_latency_s": latency, "wall_s": walls, "gaps": gaps}
+
+
+def fleet_binding_phase():
+    """Phase 20: the TPU-fleet binding on the card against the reference's
+    records; crms_grid counted from zero."""
+    from repro_torch.kernels import crms_grid
+
+    golden = json.loads(FLEET_BINDING_GOLDEN.read_text())
+    t_phase = time.perf_counter()
+    crms_grid.launches = 0
+    own, numbers = run_fleet_binding(golden)
+    log("fleet-binding", **numbers)
+    launchers = check_fleet_launchers(own)
+    tpu = check_fleet_tpu(golden)
+    launches = crms_grid.launches
+    wall = time.perf_counter() - t_phase
+    log("fleet-binding", **launchers, **tpu, crms_grid_launches=launches, phase_wall_s=wall)
+    if wall > FLEET_BINDING_LIMIT_S:
+        raise AssertionError(f"fleet: the phase took {wall:.1f} s > {FLEET_BINDING_LIMIT_S} s")
+    return {"launches": launches,
+            "refine_iters": numbers["refine_iters"] + numbers["replan_refine_iters"],
+            "phase_wall_s": wall}
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
@@ -2421,6 +2853,10 @@ def main() -> int:
     # reference's records, crms_grid counted from zero; also before any model
     baselines = baselines_phase()
 
+    # 20. the TPU-fleet binding against the reference's records, crms_grid
+    # counted from zero; also before any model
+    fleet_binding = fleet_binding_phase()
+
     # 6. flash kernel against its plain version
     flash_path = check_flash(4, 512, 512, 1, 8, 256, True, torch.bfloat16, timed=True)
     flash_f32 = check_flash(4, 512, 512, 1, 8, 256, True, torch.float32, timed=True)
@@ -2430,6 +2866,8 @@ def main() -> int:
     check_flash(2, 192, 192, 2, 3, 64, True, torch.float32)  # one head a tile (G 3)
     moe_flash = check_flash(*MOE_FLASH, torch.bfloat16, timed=True)
     check_flash(*MOE_FLASH, torch.float32)
+    code_flash = check_flash(*CODE_FLASH, torch.bfloat16, timed=True)
+    check_flash(*CODE_FLASH, torch.float32)
     audio_flash = {}
     for name, shape in AUDIO_FLASH.items():
         audio_flash[name] = check_flash(*shape, torch.bfloat16, timed=True)
@@ -2462,6 +2900,9 @@ def main() -> int:
 
         # 12. seamless-m4t-large-v2 at full width through the serving steps
         audio_launches = serve_audio_full()
+
+        # 21. codeqwen1.5-7b at full width: its serving path, counted from zero
+        code_launches = serve_code_full(code_flash)
 
     # 13. the kernels with their gradients, on the card freed of the models
     t_phase = time.perf_counter()
@@ -2506,6 +2947,8 @@ def main() -> int:
                      "refine_iters": simulated["crms_p95"]["refine_iters"]},
         "scenarios": {"launches": scenarios["launches"], "replans": scenarios["replans"]},
         "baselines": {"launches": baselines["launches"]},
+        "fleet_binding": {"launches": fleet_binding["launches"],
+                          "refine_iters": fleet_binding["refine_iters"]},
     }, {
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches,
@@ -2518,6 +2961,7 @@ def main() -> int:
             "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms", "bound_ms",
             "bound_by", "library_ms", "library_graph_ms")},
         "moonshot": {"launches": moe_launches, **{key: moe_flash[key] for key in timed_keys}},
+        "codeqwen": {"launches": code_launches, **{key: code_flash[key] for key in timed_keys}},
         "seamless": {"launches": audio_launches,
                      **{name: {key: res[key] for key in timed_keys}
                         for name, res in audio_flash.items()}},

@@ -1,17 +1,25 @@
 """Incremental power model (paper §IV-A, Eqs. 2-3).
 
 Power is linear in the *allocated CPU-capacity fraction* — the control knob the
-container runtime exposes — not in frequency. Edge defaults follow the paper's
-i7-9700 testbed; only the span (full minus idle) enters the objective.
+container runtime exposes — not in frequency. The TPU-fleet binding
+(``core/fleet``) uses the same form with chips-per-replica as the capacity
+unit.
+
+Edge defaults follow the paper's i7-9700 testbed; only the span (full minus
+idle) enters the objective. The per-chip TPU v5e figures are the modelled
+pod's inputs, copied from ``repro/core/power.py`` (DESIGN.md §3).
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class PowerModel:
-    p_idle: float  # W, whole server
+    p_idle: float  # W, whole server (edge) or per chip (the modelled TPU pod)
     p_full: float  # W at the reference full-load state
 
     @property
@@ -21,6 +29,10 @@ class PowerModel:
 
 # Paper testbed: Intel i7-9700 edge server (8 cores).
 EDGE_POWER = PowerModel(p_idle=40.0, p_full=190.0)
+
+# The modelled TPU v5e pod: ~75 W idle, ~200 W active per chip, so a
+# 256-chip pod spans 256*(200-75) = 32 kW between idle and full allocation.
+TPU_V5E_CHIP_POWER = PowerModel(p_idle=75.0, p_full=200.0)
 
 
 def cpu_fraction(n_containers, r_cpu, total_cpu):
@@ -59,3 +71,13 @@ def warm_power(
     active count therefore enter P1 exactly as an inflated β′ =
     β·(1 + idle_frac·θ) on the existing ΔP term (DESIGN.md §13)."""
     return idle_frac * power.span * n_warm * r_cpu / total_cpu
+
+
+def pod_power(n_chips_allocated, power: PowerModel = TPU_V5E_CHIP_POWER):
+    """TPU binding: incremental pod power [W] for allocating ``n`` chips
+    (span is per-chip, so ΔP = span * n — the same linear-in-capacity form
+    as Eq. 2 with R̄ = 1 chip as the capacity unit). float64: a tensor stays
+    on its device, anything else becomes a NumPy array."""
+    if isinstance(n_chips_allocated, torch.Tensor):
+        return power.span * n_chips_allocated.to(torch.float64)
+    return power.span * np.asarray(n_chips_allocated, dtype=np.float64)

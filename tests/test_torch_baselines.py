@@ -16,9 +16,7 @@ and random search at make_tenant_mix(16) with 20000 samples, which
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_baselines.py
 """
-import importlib.util
 import json
-import pathlib
 import sys
 from types import SimpleNamespace
 
@@ -36,17 +34,8 @@ from repro_torch.core import baselines as port_baselines
 from repro_torch.core import problem as port_problem
 from repro_torch.core import profiler as port_profiler
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+from torch_scripts import chip_smoke
 
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-chip_smoke = _chip_smoke()
 assert_same, baseline_record = chip_smoke.assert_same, chip_smoke.baseline_record
 GOLDEN = chip_smoke.BASELINES_GOLDEN
 ALPHA, BETA = 1.4, 0.2

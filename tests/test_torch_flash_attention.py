@@ -8,8 +8,6 @@ kernel itself is held to this plain version on the card
 route (P split into two bf16 terms before P·V) and of its float32 route (both
 products in three TF32 products each) is checked here against that plain
 version (and the bf16 route against the Pallas kernel)."""
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -211,10 +209,8 @@ def test_flash_f32_bound_counts_the_least_work_at_the_serving_shape():
     causal: the products at a third of the TF32 tensor rate plus the
     softmax's five operations a score at the float32 rate, against the
     bytes; bf16 keeps its tensor-core count."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    from torch_scripts import chip_smoke as smoke
+
     B, S, KV, G, hd = 4, 512, 1, 8, 256
     products = 4 * B * KV * G * S * S * hd // 2
     softmax = 5 * B * KV * G * S * S // 2

@@ -128,9 +128,11 @@ def test_main_path_launches_the_kernel(cuda_device):
     (1, 17, 17, 1, 8, 256, True, torch.float32), (1, 1, 40, 1, 8, 64, True, torch.float32),
     # the full-width MoE and audio paths, both dtypes: moonshot-v1-16b-a3b's
     # prefill; seamless-m4t-large-v2's encoder, cross-attention prefill and
-    # cross-attention decode (Sq 1: one live row in a tile)
+    # cross-attention decode (Sq 1: one live row in a tile); codeqwen1.5-7b's
+    # full-width prefill (32 kv heads)
     *[(*shape, dtype) for shape in (
         (4, 512, 512, 16, 1, 128, True), (4, 128, 128, 16, 1, 64, False),
+        (4, 512, 512, 32, 1, 128, True),
         (4, 512, 128, 16, 1, 64, False), (4, 1, 128, 16, 1, 64, False))
       for dtype in (torch.bfloat16, torch.float32)],
 ])
@@ -402,19 +404,6 @@ def test_scans_on_the_card_match_the_host_loop(cuda_device):
         np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
 
 
-def _chip_smoke():
-    """chip_smoke.py as a module: its phase-18 helpers build a trace from the
-    golden file's description and hold the document to the reference's."""
-    import importlib.util
-    import pathlib
-
-    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 @pytest.mark.gpu
 def test_smoke_trace_on_the_card_matches_the_reference(cuda_device):
     """The smoke trace (join, cap resize, leave, drift; crms, predictive_crms,
@@ -426,7 +415,8 @@ def test_smoke_trace_on_the_card_matches_the_reference(cuda_device):
     through CRMS (drf's demands launch none)."""
     import json
 
-    smoke = _chip_smoke()
+    from torch_scripts import chip_smoke as smoke
+
     golden = json.loads(smoke.SCENARIO_GOLDEN.read_text())
     before = port_kernel.launches
     res = smoke.replay_trace("smoke", golden["traces"]["smoke"], None)
@@ -476,3 +466,32 @@ def test_search_baselines_on_the_card_match_the_cpu(cuda_device):
         assert (card.feasible, card.stable) == (cpu.feasible, cpu.stable), policy
         np.testing.assert_allclose(card.r_cpu, cpu.r_cpu, rtol=1e-9, err_msg=policy)
         np.testing.assert_allclose(card.r_mem, cpu.r_mem, rtol=1e-9, err_msg=policy)
+
+
+@pytest.mark.gpu
+def test_fleet_plan_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
+    """FleetManager's plan on the reference's κ (tests/data/
+    torch_fleet_binding_golden.json, put in instead of the manager's own
+    fit) on the card against the same manager on the CPU, and the ×1.03 /
+    ×1.6 drift from there, under chip_smoke.py phase 20's bars
+    (``check_fleet_record``)."""
+    import json
+
+    from repro_torch.core.problem import App
+    from repro_torch.serve import fleet as serve_fleet
+
+    from torch_scripts import chip_smoke as smoke
+
+    golden = json.loads(smoke.FLEET_BINDING_GOLDEN.read_text())
+    apps = [App(**{**a, "kappa": tuple(a["kappa"])}) for a in golden["apps"]]
+    monkeypatch.setattr(serve_fleet, "build_fleet_apps", lambda *_, **__: list(apps))
+    records = []
+    for device in (None, "cpu"):
+        fm = serve_fleet.FleetManager(n_chips=smoke.FLEET_CHIPS, device=device)
+        plan, _, _ = smoke.fleet_plan(fm)
+        flags, drifted, _, _ = smoke.fleet_binding_drift(fm)
+        records.append((plan, flags, drifted))
+    (card, card_flags, card_drift), (cpu, cpu_flags, cpu_drift) = records
+    smoke.check_fleet_record(cpu, card, "plan", apps, fm.caps)
+    assert card_flags == cpu_flags == [False, True]
+    smoke.check_fleet_record(cpu_drift, card_drift, "drift", fm.apps, fm.caps)

@@ -16,9 +16,7 @@ Regenerate it with
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_placement.py
 """
 import dataclasses
-import importlib.util
 import json
-import pathlib
 import sys
 
 import numpy as np
@@ -48,19 +46,12 @@ from repro_torch.core.engine import PackedApps, p1_solve_batch
 from repro_torch.core.placement import FleetPlanner, make_fleet
 from repro_torch.core.problem import App, ServerCaps
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
+from torch_scripts import chip_smoke
+
 ALPHA, BETA = 1.4, 0.2
 CPU = {"device": "cpu"}
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-chip_smoke = _chip_smoke()
 assert_same, plain = chip_smoke.assert_same, chip_smoke.plain
 GOLDEN = chip_smoke.FLEET_GOLDEN
 

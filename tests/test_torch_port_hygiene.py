@@ -10,11 +10,14 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples_torch").glob("*.py"))
+              + sorted((ROOT / "benchmarks_torch").glob("*.py")))
 
 
 def _imported_roots(path):
@@ -135,7 +138,8 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.train.checkpoint, repro_torch.data.pipeline, repro_torch.core.des, "
         "repro_torch.core.des_vector, repro_torch.core.arrivals, repro_torch.core.failures, "
         "repro_torch.core.lifecycle, repro_torch.api.scenario, repro_torch.api.quasidynamic, "
-        "repro_torch.core.baselines, repro_torch.core.placement; "
+        "repro_torch.core.baselines, repro_torch.core.placement, repro_torch.core.fleet, "
+        "repro_torch.serve.fleet; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -256,6 +260,42 @@ def test_entry_points_default_to_cuda(monkeypatch):
         FleetScenarioRunner(fleet)
     assert FleetPlanner(fleet_apps, node_caps, device="cpu").device == torch.device("cpu")
     assert FleetScenarioRunner(fleet, device="cpu").device == "cpu"
+
+
+def test_fleet_binding_defaults_to_cuda(monkeypatch):
+    """FleetManager, the fleet allocator, ``launch.serve --plan`` and the
+    fleet_tpu benchmark fit and solve on the card by default and raise
+    without one; ``device="cpu"`` reaches the fit and every request."""
+    from repro_torch.core import fleet
+    from repro_torch.launch import serve
+    from repro_torch.serve.fleet import FleetManager
+
+    workloads = fleet.default_workloads()[:2]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetManager(workloads, n_chips=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fleet.fleet_allocator(workloads, n_chips=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--plan"])
+    from torch_scripts import chip_smoke
+
+    bench = chip_smoke.load_script("benchmarks_torch/fleet_tpu.py")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.run([])
+    fm = FleetManager(workloads, n_chips=64, device="cpu")
+    seen, crms = [], fm.allocator.policy
+
+    class Spy:
+        name = crms.name
+
+        def allocate(self, request):
+            seen.append(request.device)
+            return crms.allocate(request)
+
+    fm.allocator.policy = Spy()
+    alloc, groups = fm.plan()
+    assert seen == ["cpu"] and len(groups) == int(np.sum(alloc.n))
 
 
 def test_registry_lists_only_the_ported_policies():

@@ -31,7 +31,6 @@ the file with
 import copy
 import dataclasses
 import functools
-import importlib.util
 import json
 import pathlib
 import sys
@@ -51,20 +50,11 @@ from repro_torch.api import scenario as port_scenario
 from repro_torch.core import problem as port_problem
 from repro_torch.core import profiler as port_profiler
 
+from torch_scripts import chip_smoke
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def _chip_smoke():
-    """chip_smoke.py as a module: phase 18's helpers build a trace from its
-    description, run it, record allocations and compare documents, for
-    either package."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
-chip_smoke = _chip_smoke()
 alloc_record, assert_same = chip_smoke.alloc_record, chip_smoke.assert_same
 build_scenario, plain = chip_smoke.build_scenario, chip_smoke.plain
 GOLDEN = chip_smoke.SCENARIO_GOLDEN

@@ -174,11 +174,17 @@ def test_launch_serve_demo_runs_on_cpu():
     assert all(len(json.loads(ln.split(":", 1)[1])) == 8 for ln in lines)
 
 
-def test_launch_serve_needs_demo():
+def test_launch_serve_needs_demo(monkeypatch):
+    """Without --demo the launcher runs the fleet plan (the reference's
+    default), on the CUDA device unless --device names another: no card, no
+    plan."""
     from repro_torch.launch import serve
 
-    with pytest.raises(SystemExit):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main([])
+    with pytest.raises(SystemExit):
+        serve.main(["--chips"])
 
 
 def write_golden(path=GOLDEN):

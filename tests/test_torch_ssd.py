@@ -6,8 +6,6 @@ Tolerances are the reference's own (``tests/test_kernels.py``): atol 2e-5 /
 rtol 2e-4 against the oracle, atol 1e-4 / rtol 1e-3 against the sequential
 recurrence. The CUDA kernel itself is held to this plain version on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``)."""
-import importlib.util
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -210,19 +208,12 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
     assert float(((ref.tf32_rna(a) - a).abs() / a.abs()).max()) <= 2.0 ** -11
 
 
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def test_ssd_bound_counts_the_least_work_at_the_serving_shape():
     """chip_smoke.ssd_bound_ms at (4, 512, 24, 64, 128, 256): the scores once
     per (batch, chunk), the products at a third of the TF32 tensor rate, the
     elementwise work at the float32 rate, against the bytes."""
-    smoke = _chip_smoke()
+    from torch_scripts import chip_smoke as smoke
+
     B, S, H, P, N, Q = 4, 512, 24, 64, 128, 256
     chunks, pairs = B * S // Q, Q * (Q + 1) // 2
     products = chunks * pairs * 2 * N + chunks * H * (pairs * 2 * P + 2 * Q * P * N)

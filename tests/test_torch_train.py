@@ -22,7 +22,6 @@ file cannot go stale. Regenerate it with
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_train.py [path]
 """
 import dataclasses
-import importlib.util
 import json
 import os
 import subprocess
@@ -53,6 +52,8 @@ from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.step import make_decode_step, make_prefill_step
 from repro_torch.train import optimizer
 
+from torch_scripts import chip_smoke
+
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "data" / "torch_train_golden.json"
 SETUP = {"steps": 6, "batch": 4, "seq_len": 32, "microbatches": 2, "lr": 1e-3, "seed": 0}
@@ -72,13 +73,6 @@ def _one_torch_thread():
         yield
     finally:
         torch.set_num_threads(threads)
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
 
 
 # --- optimizers --------------------------------------------------------------
@@ -199,7 +193,7 @@ def _route_recorder(cfg):
 def _ref_curve(arch):
     """The reference's train step over SETUP: [(loss, grad_norm)] per step,
     and for a MoE model each step's expert ids (``_route_recorder``)."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke
     cfg = ref_config(arch).reduced()
     params = jax.tree.map(jnp.asarray, interop.numpy_params(cfg, SETUP["seed"]))
     opt = ref_optimizer.adamw(lr=SETUP["lr"])
@@ -229,7 +223,7 @@ def test_port_training_matches_golden(golden, arch):
     kernel launch."""
     entry = golden["entries"][arch]
     before = flash_kernel.launches, ssd_kernel.launches
-    curve = _chip_smoke().train_curve(get_config(arch).reduced(), golden["setup"], "cpu",
+    curve = chip_smoke.train_curve(get_config(arch).reduced(), golden["setup"], "cpu",
                                       routes=entry.get("routes"))
     assert (flash_kernel.launches, ssd_kernel.launches) == before
     loss, gnorm = (np.array(c) for c in zip(*curve))
@@ -244,7 +238,7 @@ def test_moe_training_with_free_routes_is_sensitive_to_route_flips(golden):
     jamba (8 MoE layers) drifts once a near-tie top-2 choice falls the other
     way (its loss at step 6 is off by more than 1e-4), though on the
     reference's own parameters the port's loss agrees at every step."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke
     gaps = {}
     for arch in ("moonshot-v1-16b-a3b", "jamba-1.5-large-398b"):
         loss = np.array([c[0] for c in smoke.train_curve(get_config(arch).reduced(),
@@ -271,7 +265,7 @@ def test_train_launches_counts_forward_and_recompute():
     """chip_smoke.train_launches: one kernel launch per attention / Mamba
     layer (and encoder layer with frames) per microbatch, twice with the
     recompute: gemma-2b's 144 a step of 4 microbatches."""
-    smoke = _chip_smoke()
+    smoke = chip_smoke
     assert smoke.train_launches(get_config("gemma-2b"), 4) == (144, 0)
     assert smoke.train_launches(get_config("mamba2-130m"), 1) == (0, 48)
     seamless = get_config("seamless-m4t-large-v2")
