@@ -261,6 +261,33 @@ is non-zero:
                the flash kernel at its shape (4, 512, 512, 32, 1, 128) causal
                in bf16 (timed, the kernels line's "codeqwen" entry) and f32.
 
+ 22. mesh    — (last) four ranks on the one card (launch.mesh.spawn over
+               gloo, NCCL refusing two ranks on one device), each check
+               against a single-rank run on the card with the same seeded
+               weights: (a) the fleet's row solve on a (4,) "nodes" mesh at
+               make_fleet(1000, 16), the cold plan and first re-plan against
+               tests/data/torch_fleet_golden.json with phase 19's bars and
+               within 1e-9 of phase 19's rows; (b) the MoE block at
+               moonshot-v1-16b-a3b's width in float32 with given ids, a2a at
+               4 x 512 tokens and replicated at a decode batch of 2 on (2, 2),
+               against the local mode at atol 1e-5 / rtol 1e-4 dropless, and
+               at cf 1.25 finite with the dropped share; (c) gemma-2b at full
+               width and depth: a cache-filling prefill of 4 x 512 in the 2d
+               layout (sequence-mode flash, the causal offset), then 16
+               teacher-forced decode steps in the serving layout with T of
+               the cache split over 'model', logits within 3e-2 of max
+               |logit|, 18 flash launches a rank, the kernel at the rank's
+               offset against its plain version; (d) mamba2-130m pure data
+               parallel, one prefill of 4 x 512, 24 ssd launches a rank; (e)
+               moonshot-v1-16b-a3b at full width cut to 4 layers, a prefill
+               (a2a) and 8 decode steps at batch 2 (replicated) with the
+               single rank's routes. Each part's time, collectives
+               (CommDebugMode) and peak memory per rank; the offset kernel
+               timed at rank 1's shape (2, 256, 512, 1, 8, 256), offset 256;
+               the phase within 150 s. Rehearse it on the CPU at reduced
+               sizes: mesh_references("cpu", reduced=True), then
+               run_mesh(refs, golden, "cpu", reduced=True).
+
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
 the script prints no result and exits non-zero.
@@ -270,6 +297,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -583,7 +611,7 @@ def run_entry(name, golden, device, twins_interchangeable=False):
     return launches, diag.refine_iters, alloc
 
 
-def flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype):
+def flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype, offset=0):
     """Least time for attention on these shapes: q, k, v read once and the
     output written once over the memory rate, against the products' 4·B·H·
     Sq·Skv·hd operations (halved for causal). bf16: at the bf16 tensor-core
@@ -593,9 +621,12 @@ def flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype):
     (halved for causal) a scale, a running max, a subtraction, an exp and a
     sum. At (4, 512, 512, 1, 8, 256) causal in float32: 4.29e9 product and
     2.1e7 elementwise operations, 0.0263 ms against 0.0113 ms of bytes.
-    Returns (ms, "bytes" | "operations")."""
+    With a causal ``offset`` (query row i sees keys <= offset + i) the share
+    of live scores is counted exactly. Returns (ms, "bytes" | "operations")."""
     H = KV * G
     share = 0.5 if causal else 1.0
+    if causal and offset:
+        share = sum(min(Skv, offset + i + 1) for i in range(Sq)) / (Sq * Skv)
     products = 4.0 * B * H * Sq * Skv * hd * share
     elem = torch.finfo(dtype).bits // 8
     n_bytes = elem * (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd)
@@ -608,10 +639,18 @@ def flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def sdpa(q, k, v, causal):
+def sdpa(q, k, v, causal, offset=0):
     """scaled_dot_product_attention on the kernel's inputs, in its (B, H, S,
-    hd) layout (k/v expanded over G where ``enable_gqa`` is missing)."""
+    hd) layout (k/v expanded over G where ``enable_gqa`` is missing); a
+    causal ``offset`` becomes a boolean mask (row i sees keys <= offset + i)."""
     F = torch.nn.functional
+    if causal and offset:
+        Sq, Skv = q.shape[2], k.shape[2]
+        mask = (torch.arange(Skv, device=q.device)[None, :]
+                <= offset + torch.arange(Sq, device=q.device)[:, None])
+        G = q.shape[1] // k.shape[1]
+        ke, ve = (t.repeat_interleave(G, dim=1) for t in (k, v))
+        return lambda: F.scaled_dot_product_attention(q, ke, ve, attn_mask=mask)
     if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
         return lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                       enable_gqa=True)
@@ -634,8 +673,10 @@ def check_bf16_rounding(out, want, what):
     return share
 
 
-def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
-    """Flash kernel vs its plain version on the card; returns the numbers."""
+def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False, offset=0):
+    """Flash kernel vs its plain version on the card (``offset``: the causal
+    diagonal's, a sequence-sharded query block's first row); returns the
+    numbers."""
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(SEED + B * Sq + hd)
@@ -644,10 +685,10 @@ def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
                for shape in ((B, Sq, KV, G, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
 
     def kernel():
-        return ops.flash_attention(q, k, v, causal=causal)
+        return ops.flash_attention(q, k, v, causal=causal, offset=offset)
 
     def plain():
-        return ref.flash_attention_plain(q, k, v, causal)
+        return ref.flash_attention_plain(q, k, v, causal, offset=offset)
 
     out, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -659,6 +700,8 @@ def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
     res = {"shape": f"({B},{Sq},{Skv},{KV},{G},{hd})", "causal": causal,
            "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": float(np.max(np.abs(out - want)))}
+    if offset:
+        res["offset"] = offset
     if dtype == torch.bfloat16:
         res["bf16_differing_share"] = check_bf16_rounding(out, want,
                                                           f"flash {(B, Sq, Skv, KV, G, hd)}")
@@ -666,7 +709,7 @@ def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
         H = KV * G
         qh = q.permute(0, 2, 3, 1, 4).reshape(B, H, Sq, hd).contiguous()
         kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (k, v))
-        lib = sdpa(qh, kh, vh, causal)
+        lib = sdpa(qh, kh, vh, causal, offset)
         lib_out = lib().reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
         res["library_max_abs_err"] = float((lib_out.float().cpu() - torch.as_tensor(want))
                                            .abs().max())
@@ -676,7 +719,8 @@ def check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, timed=False):
         res["plain_graph_ms"] = graph_ms(plain, calls=5, replays=2)
         res["library_ms"] = cuda_ms(lib, 50)
         res["library_graph_ms"] = graph_ms(lib)
-        res["bound_ms"], res["bound_by"] = flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype)
+        res["bound_ms"], res["bound_by"] = flash_bound_ms(B, Sq, Skv, KV, G, hd, causal, dtype,
+                                                          offset)
     log("flash", **res)
     return res
 
@@ -2368,6 +2412,7 @@ def baselines_phase():
     # (c) the fleet at the reference's full size
     planner, cold, incr, numbers = run_fleet(placement)
     parity = check_fleet(fleet_golden, planner, cold, incr, engine)
+    rows = fleet_rows(planner)  # phase 22 holds its mesh row solve to these
     _, kernels, copies, busy_ms, wall_ms = profile_device(
         lambda: planner._solve_nodes(range(planner.N)))
     log("fleet", **numbers, parity_max_rel=parity, exchange_accepted=cold["diagnostics"][
@@ -2386,7 +2431,7 @@ def baselines_phase():
 
     launches = crms_grid.launches
     wall = time.perf_counter() - t_phase
-    res = {"launches": launches, "phase_wall_s": wall}
+    res = {"launches": launches, "phase_wall_s": wall, "fleet_rows": rows}
     log("baselines", crms_grid_launches=launches, phase_wall_s=wall)
     if launches == 0:
         raise AssertionError("baselines: the crms solve never launched the crms_grid kernel")
@@ -2760,6 +2805,545 @@ def fleet_binding_phase():
             "refine_iters": numbers["refine_iters"] + numbers["replan_refine_iters"],
             "phase_wall_s": wall}
 
+# ----------------------------------------------------------------------------
+# The mesh (phase 22)
+# ----------------------------------------------------------------------------
+MESH_WORLD = 4  # ranks, all on the one card, joined by gloo
+MESH_LIMIT_S = 150.0
+MESH_BAR = 3e-2  # logits, relative to the single rank's max |logit| (bf16)
+MESH_STEPS = 16  # gemma-2b's decode steps
+MOE_LAYERS_CUT = 4  # moonshot-v1-16b-a3b's depth on the mesh
+MOE_MESH_STEPS = 8  # its decode steps at batch 2
+MOE_TOL = dict(atol=1e-5, rtol=1e-4)
+ROWS_TOL = 1e-9  # the mesh row solve against the single rank's (tests/test_torch_rows.py)
+
+
+def full_model(cfg, device, dtype=torch.bfloat16):
+    """``cfg`` with random weights from the seeded generator on ``device``
+    (every rank draws the same)."""
+    from repro_torch.models.model import init_params
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return init_params(cfg, gen, dtype, device)
+
+
+def mesh_config(arch, reduced=False):
+    """``arch`` at full width (its depth cut for moonshot-v1-16b-a3b, to
+    MOE_LAYERS_CUT), or its reduced variant for a CPU rehearsal. The MoE runs
+    dropless (cf = E / top_k): capacity drops differ between the modes by
+    construction (a2a's capacity is per model rank's block of tokens)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch).reduced() if reduced else get_config(arch)
+    if arch == MOE_ARCH:
+        cfg = dataclasses.replace(cfg, moe_cf=cfg.moe.n_experts / cfg.moe.top_k,
+                                  n_layers=cfg.n_layers if reduced else MOE_LAYERS_CUT)
+    return cfg
+
+
+def mesh_size(reduced=False):
+    """Phase 22's batch, prompt and step counts (a CPU rehearsal's are small)."""
+    if reduced:
+        return {"slots": SLOTS, "prompt": 32, "steps": 4, "moe_steps": 3}
+    return {"slots": SLOTS, "prompt": PROMPT_LEN, "steps": MESH_STEPS,
+            "moe_steps": MOE_MESH_STEPS}
+
+
+def last_logits(logits):
+    """The last position's logits (B, V) as float32 on the host, whole."""
+    from repro_torch.models.layers import last_position, whole
+
+    return whole(last_position(logits))[:, 0, :].float().cpu()
+
+
+def logits_err(got, want, what):
+    err = float((got - want).abs().max() / want.abs().max())
+    if not (torch.isfinite(got).all() and err < MESH_BAR):
+        raise AssertionError(f"mesh {what}: logits off the single rank's by {err} "
+                             f"(bar {MESH_BAR})")
+    return err
+
+
+def decode_run(lm, cfg, rt, prompts, max_len, steps, tokens=None):
+    """A prefill that fills the cache (apply_decode at index 0) and ``steps``
+    decode steps fed ``tokens`` (teacher forcing) or the greedy ones; returns
+    (logits (steps + 1, B, V), tokens (steps + 1, B))."""
+    from repro_torch.models.model import apply_decode, init_cache
+
+    B, S = prompts.shape
+    caches = init_cache(cfg, rt, B, max_len, dtype=rt.compute_dtype)
+    lg, caches = apply_decode(lm, cfg, rt, prompts, caches, 0)
+    logits = [last_logits(lg)]
+    fed = [logits[0].argmax(-1) if tokens is None else tokens[0]]
+    for t in range(steps):
+        lg, caches = apply_decode(lm, cfg, rt, fed[t].to(rt.device)[:, None], caches, S + t)
+        logits.append(last_logits(lg))
+        fed.append(logits[-1].argmax(-1) if tokens is None else tokens[t + 1])
+    return torch.stack(logits), torch.stack(fed)
+
+
+def mesh_references(device="cuda", reduced=False):
+    """The single-rank runs (on ``device``, the same weights) that phase 22's
+    parts are held to: gemma-2b's prefill and greedy decode, mamba2-130m's
+    prefill, the cut moonshot's prefill and decode with their routes."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import apply_lm
+
+    size = mesh_size(reduced)
+    B, S = size["slots"], size["prompt"]
+    rt = Runtime(device, torch.bfloat16, "auto")
+    refs = {}
+    with torch.inference_mode():
+        cfg = mesh_config(FULL_ARCH, reduced)
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (B, S))
+        lm = full_model(cfg, device)
+        refs["gemma"] = dict(zip(("logits", "tokens"), decode_run(
+            lm, cfg, rt, torch.as_tensor(prompts), S + size["steps"], size["steps"])))
+        refs["gemma"]["prompts"] = prompts
+        del lm
+        free_card_if(device)
+        cfg = mesh_config(SSM_ARCH, reduced)
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (B, S))
+        lm = full_model(cfg, device)
+        refs["mamba"] = {"prompts": prompts,
+                         "logits": last_logits(apply_lm(lm, cfg, rt, prompts)[0])}
+        del lm
+        free_card_if(device)
+        cfg = mesh_config(MOE_ARCH, reduced)
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (B, S))
+        lm = full_model(cfg, device)
+        with MOE.recording_routes() as routes:
+            prefill = last_logits(apply_lm(lm, cfg, rt, prompts)[0])
+            dec_logits, dec_tokens = decode_run(lm, cfg, rt, torch.as_tensor(prompts[:2]),
+                                                S + size["moe_steps"], size["moe_steps"])
+        refs["moonshot"] = {"prompts": prompts, "prefill": prefill, "logits": dec_logits,
+                            "tokens": dec_tokens, "routes": [r.cpu() for r in routes]}
+        del lm
+    free_card_if(device)
+    return refs
+
+
+class Clock:
+    """Seconds since the last call (the device synchronised first)."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.t = time.perf_counter()
+
+    def __call__(self):
+        if self.cuda:
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        dt, self.t = now - self.t, now
+        return dt
+
+
+@contextlib.contextmanager
+def mesh_part(record, name, device):
+    """Times one part on this rank, counts its collectives (CommDebugMode)
+    and its peak memory; adds {"s", "collectives", "peak_gb"} to
+    ``record[name]``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out = record.setdefault(name, {})
+    t0 = time.perf_counter()
+    with CommDebugMode() as comm:
+        yield out
+    if cuda:
+        torch.cuda.synchronize()
+    out["s"] = time.perf_counter() - t0
+    out["collectives"] = {str(k).rsplit(".", 1)[-1]: int(v)
+                          for k, v in comm.get_comm_counts().items()}
+    if cuda:
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+
+@contextlib.contextmanager
+def kernel_calls():
+    """The shapes at which the code run inside calls the flash and SSD
+    kernels' ops (``ops.flash_attention`` and ``ops.ssd_chunks``, wrapped
+    meanwhile; the kernels' launch counts are untouched): {"flash": {(B, Sq,
+    Skv, KV, G, hd, causal, dtype, offset)}, "ssd": {(B, S, H, P, N,
+    chunk)}}, the arguments of ``check_flash`` and ``check_ssd``."""
+    from repro_torch.kernels import ops
+
+    calls = {"flash": set(), "ssd": set()}
+    flash, ssd_chunks = ops.flash_attention, ops.ssd_chunks
+
+    def flash_call(q, k, v, causal=True, backend="auto", offset=0):
+        B, Sq, KV, G, hd = q.shape
+        calls["flash"].add((B, Sq, k.shape[1], KV, G, hd, bool(causal), q.dtype, int(offset)))
+        return flash(q, k, v, causal=causal, backend=backend, offset=offset)
+
+    def ssd_call(xh, bmat, cmat, da, chunk=128, backend="auto"):
+        calls["ssd"].add((*xh.shape, bmat.shape[-1], chunk))
+        return ssd_chunks(xh, bmat, cmat, da, chunk=chunk, backend=backend)
+
+    ops.flash_attention, ops.ssd_chunks = flash_call, ssd_call
+    try:
+        yield calls
+    finally:
+        ops.flash_attention, ops.ssd_chunks = flash, ssd_chunks
+
+
+def check_kernel_calls(calls):
+    """Each kernel against its plain version at every shape (and causal
+    offset) in ``calls`` (``kernel_calls``), with phases 6's and 9's bars;
+    returns [{"kernel", "shape", "offset", "max_abs_err"}]."""
+    checks = []
+    for B, Sq, Skv, KV, G, hd, causal, dtype, offset in sorted(calls["flash"], key=str):
+        res = check_flash(B, Sq, Skv, KV, G, hd, causal, dtype, offset=offset)
+        checks.append({"kernel": "flash_attention", "shape": res["shape"], "offset": offset,
+                       "max_abs_err": res["max_abs_err"]})
+    for shape in sorted(calls["ssd"]):
+        res = check_ssd(*shape)
+        checks.append({"kernel": "ssd_chunk", "shape": res["shape"], "offset": 0,
+                       "max_abs_err": res["max_abs_err"]})
+    return checks
+
+
+def mesh_checks(recs, kernel):
+    """The ranks' checks of ``kernel`` (``check_kernel_calls``), one entry a
+    (shape, offset) with the largest error over the ranks."""
+    worst = {}
+    for rec in recs:
+        for part in MESH_PARTS:
+            for c in rec.get(part, {}).get("kernel_checks", ()):
+                if c["kernel"] == kernel:
+                    key = (c["shape"], c["offset"])
+                    worst[key] = max(worst.get(key, 0.0), c["max_abs_err"])
+    return [{"shape": shape, "offset": off, "max_abs_err": err}
+            for (shape, off), err in sorted(worst.items())]
+
+
+def place_module(module, mesh, model_only=False):
+    """A lone module's parameters on ``mesh`` by the sharding rules."""
+    from torch import nn
+
+    from repro_torch.models.layers import distribute
+    from repro_torch.sharding.rules import leaf_spec, placements
+
+    for name, param in list(module.named_parameters()):
+        spec = leaf_spec((name,), tuple(param.shape), mesh, model_only=model_only)
+        mod_name, _, leaf = name.rpartition(".")
+        mod = module.get_submodule(mod_name)
+        mod._parameters[leaf] = nn.Parameter(distribute(param.data, mesh,
+                                                        placements(spec, mesh)))
+    return module
+
+
+def moe_blocks(cfg, device, mesh, seed=SEED):
+    """The MoE block with float32 weights seeded on ``device`` (the same on
+    every rank), whole, and a copy laid out on ``mesh`` in the serving layout
+    (each model rank its E / n experts, so no case moves a weight)."""
+    import copy
+
+    from repro_torch.models import moe as MOE
+
+    block = MOE.MoE(cfg, device, torch.float32)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=device) * p.shape[-2] ** -0.5)
+    return block, place_module(copy.deepcopy(block), mesh, model_only=True)
+
+
+def mesh_moe_case(cfg, blocks, device, mesh, B, S, cf, seed=SEED):
+    """The MoE block on ``mesh`` against its ``local`` mode on one rank, the
+    same weights (``moe_blocks``) and the same given expert ids, on seeded
+    inputs. Returns (mode, the mesh output, the local one at this rank's rows,
+    the dropped (token, slot) share of the mesh run and of the local run)."""
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import Runtime, batch_rows
+
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    block, placed = blocks
+    gen = torch.Generator(device=device).manual_seed(seed + B * S)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=device)
+    rng = np.random.default_rng(seed + B * S)
+    ids = torch.as_tensor(np.argsort(rng.random((B, S, E)), axis=-1)[..., :k], device=device)
+    rt = make_runtime(cfg, mesh, compute_dtype=torch.float32)
+    rows = batch_rows(rt, B)
+    with MOE.replaying_routes([ids]):
+        want, _ = MOE.apply_moe(block, x, cfg, Runtime(device, torch.float32), cf=cf)
+    with MOE.replaying_routes([ids]):
+        got, _ = MOE.apply_moe(placed, x[rows], cfg, rt, cf=cf, batch=B)
+    C = MOE._capacity(B * S, k, E, cf)
+    local_dropped = float((MOE._dispatch_positions(ids.reshape(-1), E) >= C).float().mean())
+    return (MOE.moe_mode(cfg, rt, B, S), got, want[rows], moe_dropped(cfg, rt, ids, B, S, cf),
+            local_dropped)
+
+
+def moe_dropped(cfg, rt, ids, B, S, cf):
+    """The share of (token, slot) pairs past their expert's capacity in the
+    mesh dispatch of ``ids`` (B, S, k) (this rank's share of it)."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.layers import batch_rows, model_rank
+
+    from repro_torch.launch.mesh import mesh_shape
+
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    n, j = rt.model_axis_size, model_rank(rt)
+    mine = ids[batch_rows(rt, B)].reshape(-1, k)
+    if MOE.moe_mode(cfg, rt, B, S) == "a2a":
+        t_my = len(mine) // n
+        pos = MOE._dispatch_positions(mine[j * t_my:(j + 1) * t_my].reshape(-1), E)
+        return float((pos >= MOE._capacity(t_my, k, E, cf)).float().mean())
+    E_loc = E // n
+    loc = mine - j * E_loc
+    is_mine = (loc >= 0) & (loc < E_loc)
+    pos = MOE._dispatch_positions(torch.where(is_mine, loc, 0).reshape(-1), E_loc)
+    data_shards = math.prod(mesh_shape(rt.mesh)[a] for a in rt.data_axes)
+    C = MOE._capacity(max(B // data_shards, 1) * S, k, E, cf)
+    return float(((pos >= C) & is_mine.reshape(-1)).float().sum() / max(int(is_mine.sum()), 1))
+
+
+def part_fleet(out, ctx):
+    """(a) the fleet's row solve on a (4,) "nodes" mesh: the cold plan and the
+    first re-plan against the reference's records (phase 19's bars) and
+    within ROWS_TOL of the single rank's rows."""
+    from repro_torch.core import engine, placement
+
+    planner, cold, incr, numbers = run_fleet(placement, device=ctx["device"],
+                                             mesh=ctx["nodes"])
+    check_fleet(ctx["fleet_golden"], planner, cold, incr, engine, device=ctx["device"])
+    ref = ctx["refs"]["fleet"]
+    out["rows_rel_diff"] = max(
+        float(np.max(np.abs(getattr(planner, key) - ref[key])
+                     / np.maximum(np.abs(ref[key]), 1e-300)))
+        for key in ("sol_c", "sol_m", "sol_ws", "node_utility"))
+    if not out["rows_rel_diff"] <= ROWS_TOL:
+        raise AssertionError(f"mesh fleet: rows off the single rank's by {out['rows_rel_diff']}")
+    out.update(cold_plan_s=numbers["cold_plan_s"], incremental_s=numbers["incremental_s"])
+
+
+def part_moe(out, ctx):
+    """(b) the MoE block at moonshot-v1-16b-a3b's width, float32, ids given:
+    a2a and replicated against the local mode, dropless and at cf 1.25."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH).reduced() if ctx["reduced"] else get_config(MOE_ARCH)
+    dropless = cfg.moe.n_experts / cfg.moe.top_k
+    B, S = ctx["size"]["slots"], ctx["size"]["prompt"]
+    blocks = moe_blocks(cfg, ctx["device"], ctx["mesh"])
+    for name, B, S, cf in (("a2a", B, S, dropless), ("replicated", 2, 1, dropless),
+                           ("a2a_cf", B, S, 1.25), ("replicated_cf", 2, 1, 1.25)):
+        mode, got, want, dropped, local_dropped = mesh_moe_case(cfg, blocks, ctx["device"],
+                                                                ctx["mesh"], B, S, cf)
+        if mode != name.split("_")[0]:
+            raise AssertionError(f"mesh moe {name}: took the {mode} mode")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"mesh moe {name}: non-finite output")
+        if cf == dropless:
+            torch.testing.assert_close(got, want, **MOE_TOL)
+        out[name] = {"max_abs_err": float((got - want).abs().max()),
+                     "dropped_share": dropped, "local_dropped_share": local_dropped}
+
+
+def part_gemma(out, ctx):
+    """(c) gemma-2b at full width: a cache-filling prefill in the 2d layout,
+    then teacher-forced decode steps in the serving layout."""
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models.model import apply_decode, init_cache
+
+    cfg, ref, device, mesh = mesh_config(FULL_ARCH, ctx["reduced"]), ctx["refs"]["gemma"], \
+        ctx["device"], ctx["mesh"]
+    B, S, steps = ctx["size"]["slots"], ctx["size"]["prompt"], ctx["size"]["steps"]
+    lm = full_model(cfg, device)
+    rt = make_runtime(cfg, mesh, torch.bfloat16)
+    interop.place_params(lm, cfg, mesh)
+    flash_attention.launches = 0
+    caches = init_cache(cfg, rt, B, S + steps, dtype=torch.bfloat16)
+    clock = Clock(device)
+    lg, caches = apply_decode(lm, cfg, rt, torch.as_tensor(ref["prompts"]), caches, 0)
+    out["prefill_s"] = clock()
+    out["flash_launches"] = flash_attention.launches
+    out["prefill_err"] = logits_err(last_logits(lg), ref["logits"][0], "gemma prefill")
+    if device == "cuda" and out["flash_launches"] != cfg.n_layers:
+        raise AssertionError(f"mesh gemma: {out['flash_launches']} flash launches on a rank, "
+                             f"{cfg.n_layers} expected")
+    del lg
+    clock()
+    interop.place_params(lm, cfg, mesh, model_only=True)
+    out["relayout_s"] = clock()
+    errs = []
+    for t in range(steps):
+        lg, caches = apply_decode(lm, cfg, rt, ref["tokens"][t].to(device)[:, None], caches,
+                                  S + t)
+        errs.append(logits_err(last_logits(lg), ref["logits"][t + 1], f"gemma step {t}"))
+    out["decode_step_s"] = clock() / steps
+    out["decode_err_max"] = max(errs)
+
+
+def part_mamba(out, ctx):
+    """(d) mamba2-130m at full width, pure data parallel: one prefill."""
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models.model import apply_lm
+
+    cfg, ref, mesh = mesh_config(SSM_ARCH, ctx["reduced"]), ctx["refs"]["mamba"], ctx["mesh"]
+    lm = full_model(cfg, ctx["device"])
+    rt = make_runtime(cfg, mesh, torch.bfloat16)
+    interop.place_params(lm, cfg, mesh, pure_dp=True)
+    ssd.launches = 0
+    out["logits_err"] = logits_err(last_logits(apply_lm(lm, cfg, rt, ref["prompts"])[0]),
+                                   ref["logits"], "mamba prefill")
+    out["ssd_launches"] = ssd.launches
+    if ctx["device"] == "cuda" and out["ssd_launches"] != cfg.n_layers:
+        raise AssertionError(f"mesh mamba: {out['ssd_launches']} ssd launches on a rank")
+
+
+def part_moonshot(out, ctx):
+    """(e) moonshot-v1-16b-a3b at full width, depth cut: a prefill (a2a) and
+    decode steps at batch 2 (replicated), with the single rank's routes."""
+    from repro_torch import interop
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import apply_lm
+
+    cfg, ref, device, mesh = mesh_config(MOE_ARCH, ctx["reduced"]), ctx["refs"]["moonshot"], \
+        ctx["device"], ctx["mesh"]
+    S, steps = ctx["size"]["prompt"], ctx["size"]["moe_steps"]
+    lm = full_model(cfg, device)
+    rt = make_runtime(cfg, mesh, torch.bfloat16)
+    interop.place_params(lm, cfg, mesh, model_only=True)
+    flash_attention.launches = 0
+    with MOE.replaying_routes([r.to(device) for r in ref["routes"]]):
+        out["prefill_err"] = logits_err(last_logits(apply_lm(lm, cfg, rt, ref["prompts"])[0]),
+                                        ref["prefill"], "moonshot prefill")
+        logits, _ = decode_run(lm, cfg, rt, torch.as_tensor(ref["prompts"][:2]), S + steps,
+                               steps, ref["tokens"])
+    out["decode_err_max"] = max(logits_err(g, w, "moonshot decode")
+                                for g, w in zip(logits, ref["logits"]))
+    out["flash_launches"] = flash_attention.launches
+    out["modes"] = [MOE.moe_mode(cfg, rt, ctx["size"]["slots"], S), MOE.moe_mode(cfg, rt, 2, 1)]
+
+
+MESH_PARTS = {"fleet": part_fleet, "moe": part_moe, "gemma": part_gemma, "mamba": part_mamba,
+              "moonshot": part_moonshot}
+
+
+def mesh_rank(rank, world, refs, fleet_golden, device_type, parts=tuple(MESH_PARTS),
+              reduced=False):
+    """Phase 22 on one rank (every rank runs it): ``parts`` of MESH_PARTS in
+    order, each timed with its collectives and peak memory counted. Returns
+    this rank's numbers; any failed check raises."""
+    t_enter = time.time()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh, make_smoke_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = {"refs": refs, "fleet_golden": fleet_golden, "device": device_type,
+           "reduced": reduced, "size": mesh_size(reduced),
+           "mesh": make_smoke_mesh(2, 2, device_type=device_type),
+           "nodes": make_mesh((world,), ("nodes",), device_type)}
+    rec = {"rank": rank, "t_enter": t_enter, "setup_s": time.time() - t_enter}
+    for name in parts:
+        with kernel_calls() as calls:
+            with mesh_part(rec, name, device_type) as out, torch.inference_mode():
+                MESH_PARTS[name](out, ctx)
+        if torch.device(device_type).type == "cuda":  # the kernels at this rank's shapes
+            out["kernel_checks"] = check_kernel_calls(calls)
+        free_card_if(device_type)
+    from repro_torch.launch.mesh import RANK_TIMES
+
+    rec["t_exit"] = time.time()
+    rec["start_up"] = {k: v - t_enter for k, v in RANK_TIMES.items()}
+    return rec
+
+
+def free_card_if(device):
+    if torch.device(device).type == "cuda":
+        free_card()
+    else:
+        gc.collect()
+
+
+def fleet_rows(planner):
+    """A planner's node rows' solutions (after its re-plan): what the mesh row
+    solve is held to."""
+    return {key: getattr(planner, key).copy()
+            for key in ("sol_c", "sol_m", "sol_ws", "node_utility")}
+
+
+def run_mesh(refs, fleet_golden, device_type="cuda", world=MESH_WORLD,
+             parts=tuple(MESH_PARTS), reduced=False):
+    """Phase 22's ranks: ``world`` processes over gloo (every rank on card 0
+    with CUDA: NCCL refuses two ranks on one device), each running
+    ``mesh_rank``; returns their records. A failure on any rank raises."""
+    from repro_torch.launch.mesh import spawn
+
+    return spawn(mesh_rank, world, backend="gloo", device=device_type,
+                 args=(refs, fleet_golden, device_type, tuple(parts), reduced),
+                 timeout=MESH_LIMIT_S * 4)
+
+
+def mesh_phase(fleet_ref):
+    """Phase 22: the mesh on four ranks sharing the card, against single-rank
+    runs on the card (``fleet_ref``: phase 19's planner rows); returns the
+    kernels line's mesh entries."""
+    sys.path.insert(0, str(ROOT / "src"))
+    fleet_golden = json.loads(FLEET_GOLDEN.read_text())
+    t_phase = time.perf_counter()
+    free_card()
+    refs = mesh_references()
+    refs["fleet"] = fleet_ref
+    refs_s = time.perf_counter() - t_phase
+    off = check_flash(SLOTS // 2, PROMPT_LEN // 2, PROMPT_LEN, 1, 8, 256, True, torch.bfloat16,
+                      timed=True, offset=PROMPT_LEN // 2)
+    free_card()
+    t0, t_spawn = time.perf_counter(), time.time()
+    recs = run_mesh(refs, fleet_golden)
+    ranks_s = time.perf_counter() - t0
+    startup_s = min(r.pop("t_enter") for r in recs) - t_spawn
+    teardown_s = t_spawn + ranks_s - max(r.pop("t_exit") for r in recs)
+    wall = time.perf_counter() - t_phase
+    for rec in recs:
+        log("mesh", **rec)
+    parts = {name: max(r[name]["s"] for r in recs)
+             for name in ("fleet", "moe", "gemma", "mamba", "moonshot")}
+    flash = [r["gemma"]["flash_launches"] + r["moonshot"]["flash_launches"] for r in recs]
+    ssd_l = [r["mamba"]["ssd_launches"] for r in recs]
+    log("mesh", ranks=len(recs), references_s=refs_s, ranks_s=ranks_s,
+        ranks_startup_s=startup_s, ranks_setup_s=max(r["setup_s"] for r in recs),
+        ranks_teardown_s=teardown_s, parts_s=parts,
+        flash_launches_per_rank=flash, ssd_launches_per_rank=ssd_l,
+        peak_gb_per_rank=[max(r[p].get("peak_gb", 0) for p in parts) for r in recs],
+        moe_dropped_share_cf125={k: recs[0]["moe"][k]["dropped_share"]
+                                 for k in ("a2a_cf", "replicated_cf")},
+        offset_kernel=off, phase_wall_s=wall)
+    if min(flash) == 0 or min(ssd_l) == 0:
+        raise AssertionError(f"mesh: a rank launched no flash {flash} or ssd {ssd_l} kernel")
+    checked = {k: mesh_checks(recs, k) for k in ("flash_attention", "ssd_chunk")}
+    log("mesh", kernels_checked_at_the_ranks_shapes=checked)
+    for rec in recs:
+        for part in ("gemma", "mamba", "moonshot"):
+            if not rec[part].get("kernel_checks"):
+                raise AssertionError(f"mesh {part}: rank {rec['rank']} checked no kernel "
+                                     "at its shapes")
+    if wall > MESH_LIMIT_S:
+        raise AssertionError(f"mesh: the phase took {wall:.1f} s > {MESH_LIMIT_S} s")
+    timed = ("shape", "offset", "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms",
+             "bound_ms", "bound_by", "library_ms", "library_graph_ms")
+    return {"flash": {"launches": sum(flash), "launches_per_rank": flash,
+                      "checked": checked["flash_attention"],
+                      "offset_kernel": {key: off[key] for key in timed}},
+            "ssd": {"launches": sum(ssd_l), "launches_per_rank": ssd_l,
+                    "checked": checked["ssd_chunk"]}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
@@ -2933,6 +3517,9 @@ def main() -> int:
     free_card()
     simulated = simulate_phase(golden, allocations)
 
+    # 22. the mesh: four ranks on the card over gloo against single-rank runs
+    mesh = mesh_phase(baselines["fleet_rows"])
+
     print(smi, flush=True)
     timed_keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms",
                   "bound_ms", "bound_by", "library_ms", "library_graph_ms")
@@ -2965,6 +3552,7 @@ def main() -> int:
         "seamless": {"launches": audio_launches,
                      **{name: {key: res[key] for key in timed_keys}
                         for name, res in audio_flash.items()}},
+        "mesh": mesh["flash"],
         "training": {"launches": gemma_train["launches"][0],
                      "launches_per_step": gemma_train["launches_per_step"][0],
                      "grad_max_abs_err": max(r["max_abs_err"] for r in flash_grads),
@@ -2976,7 +3564,7 @@ def main() -> int:
         "launches": ssd_launches, "max_abs_err": ssd_path["max_abs_err"],
         "ms": ssd_path["ms"], "graph_ms": ssd_path["graph_ms"], "plain_ms": ssd_path["plain_ms"],
         "bound_ms": ssd_path["bound_ms"], "bound_by": ssd_path["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "mesh": mesh["ssd"],
         "training": {"launches": mamba_train["launches"][1],
                      "launches_per_step": mamba_train["launches_per_step"][1],
                      "fwd_device_ms_per_step": mamba_train["ssd_fwd_device_ms"],

@@ -208,12 +208,12 @@ class CrmsFleetPolicy:
     node_caps       (required) sequence of (cpu, mem) pairs or ServerCaps
     migrations      optional [(app_name, dst_node), ...] applied this epoch
     exchange_rounds optional outer-refinement rounds on cold plans (default 2)
-    mesh            not available: the row solve runs on one device, and a
-                    mesh raises NotImplementedError
+    mesh            optional ``DeviceMesh`` whose "nodes" axis splits the row
+                    solve (every rank allocates with the same request)
 
     STATEFUL singleton like predictive_crms (self_caching): the first call
     (or any change of app-name set / fleet shape / objective weights /
-    device) runs a cold plan — greedy placement + exchange + full row solve;
+    device / mesh) runs a cold plan — greedy placement + exchange + full row solve;
     subsequent calls run the incremental re-plan, re-solving only the nodes
     touched by λ drift and migrations. ``reset()`` drops the placement
     state."""
@@ -240,8 +240,9 @@ class CrmsFleetPolicy:
             (float(c.r_cpu), float(c.r_mem)) if hasattr(c, "r_cpu") else (float(c[0]), float(c[1]))
             for c in node_caps
         )
+        mesh = request.extra.get("mesh")
         key = (request.names(), caps_key, float(request.alpha), float(request.beta),
-               str(request.device))
+               str(request.device), None if mesh is None else id(mesh))
         migrations = tuple(request.extra.get("migrations", ()))
         if self._planner is None or key != self._key:
             self._planner = FleetPlanner(
@@ -250,7 +251,7 @@ class CrmsFleetPolicy:
                 alpha=request.alpha,
                 beta=request.beta,
                 exchange_rounds=int(request.extra.get("exchange_rounds", 2)),
-                mesh=request.extra.get("mesh"),
+                mesh=mesh,
                 seed=request.seed,
                 device=request.device,
             )

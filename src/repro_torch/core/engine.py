@@ -438,15 +438,39 @@ def ip_solve_rows(
     packed_rows a dict of (N, M)/(N, M, 3) tensors (plus the (N, M) "mask"
     sentinel field), n (N, M), caps_cpu/caps_mem (N,); power_span/alpha/beta
     are fleet-wide scalars. Returns (x* (N, 2M), utility (N,), ws (N, M)).
-    One card only: a ``mesh`` (the rows sharded over several devices) raises
-    NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"ip_solve_rows runs on one device; sharding the rows over a mesh "
-            f"(axis {mesh_axis!r}) is not available"
-        )
-    return _rows_core(x0, packed_rows, n, caps_cpu, caps_mem, power_span, alpha, beta,
+
+    With a ``mesh`` (a ``DeviceMesh``; every rank calls with the same
+    operands) the rows split over its ``mesh_axis``, as the reference's
+    ``shard_map``: each rank solves its contiguous block of N / n rows with
+    ``_rows_core`` and the blocks are all-gathered, scalars replicated, no
+    other collective. Rows are independent, so the mesh cannot change the
+    math. N must be a multiple of the axis size (the placement layer pads
+    its rows so); anything else raises ValueError."""
+    if mesh is None:
+        return _rows_core(x0, packed_rows, n, caps_cpu, caps_mem, power_span, alpha, beta,
+                          n_outer, n_inner, solver, t0, width)
+    import torch.distributed as dist
+
+    names = mesh.mesh_dim_names or ()
+    if mesh_axis not in names:
+        raise ValueError(f"ip_solve_rows: the mesh has no axis {mesh_axis!r} (axes {names})")
+    size = mesh.size(names.index(mesh_axis))
+    N = x0.shape[0]
+    if N % size:
+        raise ValueError(f"ip_solve_rows: {N} rows do not split over the {size} ranks of "
+                         f"mesh axis {mesh_axis!r}")
+    rank = mesh.get_local_rank(mesh_axis)
+    block = slice(rank * (N // size), (rank + 1) * (N // size))
+    outs = _rows_core(x0[block], {k: v[block] for k, v in packed_rows.items()}, n[block],
+                      caps_cpu[block], caps_mem[block], power_span, alpha, beta,
                       n_outer, n_inner, solver, t0, width)
+    group = mesh.get_group(mesh_axis)
+    gathered = []
+    for part in outs:
+        full = torch.empty((N, *part.shape[1:]), dtype=part.dtype, device=part.device)
+        dist.all_gather_into_tensor(full, part.contiguous(), group=group)
+        gathered.append(full)
+    return tuple(gathered)
 
 
 # ----------------------------------------------------------------------------

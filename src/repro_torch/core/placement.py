@@ -127,7 +127,12 @@ class FleetPlanner:
     summed utility improves.
 
     Every solve runs on ``device`` (None: the CUDA device, RuntimeError
-    without one). One device only: a ``mesh`` raises NotImplementedError.
+    without one). With a ``mesh`` (a ``DeviceMesh`` whose ``mesh_axis``
+    splits the node rows; every rank runs the same planner on the same
+    inputs) each row solve is split over it (``engine.ip_solve_rows``), the
+    row batch padded to at least the axis size with donor rows (the
+    reference's ``shard_map`` needs a batch its axis divides and would refuse
+    a smaller one).
     """
 
     def __init__(
@@ -145,12 +150,17 @@ class FleetPlanner:
         seed: int = 0,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"FleetPlanner solves on one device; sharding the node rows over a "
-                f"mesh (axis {mesh_axis!r}) is not available"
-            )
         self.device = resolve_device(device)
+        if mesh is not None:
+            names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+            if mesh_axis not in names:
+                raise ValueError(f"FleetPlanner: the mesh has no axis {mesh_axis!r} "
+                                 f"(axes {names})")
+            size = mesh.size(names.index(mesh_axis))
+            if size & (size - 1):
+                raise ValueError(f"FleetPlanner: mesh axis {mesh_axis!r} has {size} ranks; the "
+                                 "row batch pads to powers of two, so it must be one")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.apps = list(apps)
         self.packed = PackedApps.from_apps(self.apps)
         self.A = len(self.apps)
@@ -367,6 +377,8 @@ class FleetPlanner:
 
         B = sub.size
         Bp = _pad_pow2(B)
+        if self.mesh is not None:  # every rank of the axis takes >= 1 row
+            Bp = max(Bp, self.mesh.size(self.mesh.mesh_dim_names.index(self.mesh_axis)))
         self._width = self._erlang_width()
 
         def pad(a):
@@ -395,6 +407,8 @@ class FleetPlanner:
             n_outer=self.n_outer,
             n_inner=self.n_inner,
             width=self._width,
+            mesh=self.mesh,
+            mesh_axis=self.mesh_axis,
         )
         out = torch.cat([x, u[:, None], ws], dim=1).cpu().numpy()[:B]
         x, u, ws = out[:, : 2 * M], out[:, 2 * M], out[:, 2 * M + 1:]

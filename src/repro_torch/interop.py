@@ -6,7 +6,8 @@ Python numbers (whatever produced them) and flatten an Allocation back into
 arrays, so two implementations can be compared on the same instance. For the
 model substrate, ``numpy_params`` draws a parameter tree in the reference's
 layout, ``params_from_jax`` loads such a tree into the port's ``LM`` and
-``params_to_jax`` turns an ``LM``'s parameters back into that layout.
+``params_to_jax`` turns an ``LM``'s parameters back into that layout, and
+``place_params`` lays an ``LM`` out on a device mesh by the sharding rules.
 """
 from __future__ import annotations
 
@@ -236,4 +237,47 @@ def params_from_jax(tree, cfg, device=None, dtype=torch.float32):
     if extra:
         raise ValueError(f"params_from_jax: leaves the model has no place for: "
                          f"{sorted(extra)}")
+    return lm
+
+
+def param_specs(lm, cfg, mesh, *, pure_dp: bool = False, model_only: bool = False) -> dict:
+    """{parameter name: spec} of ``lm``'s parameters by the reference's
+    ``tree_shardings`` rule on its tree (a stage leaf's spec is its stacked
+    ``(repeats, ...)`` leaf's without the leading entry)."""
+    from repro_torch.sharding.rules import leaf_spec
+
+    names = {id(p): name for name, p in lm.named_parameters()}
+    out = {}
+    for param, path, repeats, _ in _leaf_places(lm, cfg):
+        shape = tuple(param.shape) if repeats is None else (repeats, *param.shape)
+        spec = leaf_spec(path, shape, mesh, pure_dp=pure_dp, model_only=model_only)
+        out[names[id(param)]] = spec if repeats is None else spec[1:]
+    return out
+
+
+def place_params(lm, cfg, mesh, *, pure_dp: bool = False, model_only: bool = False):
+    """Lay ``lm``'s parameters out on ``mesh`` (a ``DeviceMesh``) by the
+    sharding rules (``sharding.rules``; ``pure_dp`` / ``model_only`` as
+    ``tree_shardings``), in place, and return ``lm``. A plain parameter (the
+    whole value, the same on every rank, e.g. from ``numpy_params`` /
+    ``params_from_jax`` or a seeded ``init_params``) becomes a ``DTensor``
+    of which this rank keeps only its shards; a parameter already on the
+    mesh is redistributed (moving, say, from the 2d to the serving
+    layout)."""
+    from torch import nn
+
+    from repro_torch.models.layers import _is_dtensor, distribute, redistribute
+    from repro_torch.sharding.rules import placements
+
+    specs = param_specs(lm, cfg, mesh, pure_dp=pure_dp, model_only=model_only)
+    modules = dict(lm.named_modules())
+    for name, spec in specs.items():
+        mod_name, _, leaf = name.rpartition(".")
+        mod = modules[mod_name]
+        param = mod._parameters[leaf]
+        pls = placements(spec, mesh)
+        with torch.no_grad():
+            value = (redistribute(param.data, pls) if _is_dtensor(param.data)
+                     else distribute(param.data, mesh, pls))
+        mod._parameters[leaf] = nn.Parameter(value, requires_grad=param.requires_grad)
     return lm

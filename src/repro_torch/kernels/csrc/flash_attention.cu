@@ -394,18 +394,21 @@ __device__ __forceinline__ int tile_of(int w, int blk, int n_tiles) {
 }
 
 // K/V tiles that q tile ``t`` needs: all, or up to its last live position
-// when causal (tiles above the diagonal are skipped); 0 for no tile.
-__device__ __forceinline__ int tiles_needed(int t, int PT, int Sq, int n_kv, int causal) {
+// (moved by the causal offset ``off``) when causal (tiles above the diagonal
+// are skipped); 0 for no tile.
+__device__ __forceinline__ int tiles_needed(int t, int PT, int Sq, int n_kv, int causal,
+                                            int off) {
   if (t < 0) return 0;
   const int last = min((t + 1) * PT, Sq) - 1;
-  return causal ? min(n_kv, last / BK + 1) : n_kv;
+  return causal ? min(n_kv, (last + off) / BK + 1) : n_kv;
 }
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out, int Sq,
-                int Skv, int KV, int G, int GP, int n_tiles, float scale, int causal) {
+                int Skv, int KV, int G, int GP, int n_tiles, float scale, int causal,
+                int off) {
   using C = Cfg<HD>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sq = reinterpret_cast<uint8_t*>(
@@ -424,7 +427,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   int n_kt = 0;                          // K/V tiles this block streams
 #pragma unroll
   for (int c = 0; c < CONSUMERS; ++c)
-    n_kt = max(n_kt, tiles_needed(tile_of(c, blockIdx.x, n_tiles), PT, Sq, n_kv, causal));
+    n_kt = max(n_kt, tiles_needed(tile_of(c, blockIdx.x, n_tiles), PT, Sq, n_kv, causal, off));
 
   // K/V tile kt into its stage (one thread)
   auto load_kv = [&](int kt) {
@@ -471,7 +474,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   // warpgroup w: 64 q rows
   const int w = threadIdx.x / 128;
   const int t = tile_of(w, blockIdx.x, n_tiles);
-  const int need = tiles_needed(t, PT, Sq, n_kv, causal);
+  const int need = tiles_needed(t, PT, Sq, n_kv, causal, off);
   const int tid = threadIdx.x % 128, lane = tid % 32;
   const int r0 = (tid / 32) * 16 + lane / 4;   // this thread's rows: r0 and r0 + 8
   const int p0 = t * PT;
@@ -509,7 +512,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       // scale, mask, online softmax; element i: row r0 + 8 * ((i >> 1) & 1),
       // key kt * BK + 8 * (i >> 2) + 2 * (lane % 4) + (i & 1). Only a tile
       // on the diagonal, past Skv or with rows past Sq needs the mask.
-      const bool masked = (kt + 1) * BK > Skv || (causal && (kt + 1) * BK - 1 > p0) ||
+      const bool masked = (kt + 1) * BK > Skv || (causal && (kt + 1) * BK - 1 > p0 + off) ||
                           p0 + PT > Sq;
       if (masked) {
         const int k0 = kt * BK + 2 * (lane % 4);
@@ -517,7 +520,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
         for (int i = 0; i < BK / 2; ++i) {
           const int kpos = k0 + 8 * (i >> 2) + (i & 1);
           const int qpos = (i & 2) ? qpos1 : qpos0;
-          const bool live = kpos < Skv && qpos < Sq && (!causal || qpos >= kpos);
+          const bool live = kpos < Skv && qpos < Sq && (!causal || qpos + off >= kpos);
           sc[i] = live ? sc[i] * scale : -INFINITY;
         }
       } else {
@@ -664,7 +667,7 @@ constexpr int TENSOR_MAP_FAILED = -1;  // launcher status: a TMA map could not b
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int KV,
-           int G, float scale, int causal, cudaStream_t stream) {
+           int G, float scale, int causal, int off, cudaStream_t stream) {
   using C = Cfg<HD>;
   const int GP = ROWS % G == 0 ? G : 1;  // heads packed per 64-row tile
   const int PT = ROWS / GP;
@@ -683,7 +686,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   if (err != cudaSuccess) return int(err);
   const dim3 grid((n_tiles + CONSUMERS - 1) / CONSUMERS, KV * (G / GP), B);
   kernel<<<grid, THREADS, C::SMEM, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Skv,
-                                             KV, G, GP, n_tiles, scale, causal);
+                                             KV, G, GP, n_tiles, scale, causal, off);
   return int(cudaGetLastError());
 }
 
@@ -736,7 +739,7 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ out, int B, int Sq, int Skv,
-               int KV, int G, int GP, int n_tiles, float scale, int causal) {
+               int KV, int G, int GP, int n_tiles, float scale, int causal, int off) {
   using C = Cfg<HD>;
   constexpr int BK = C::BK, NJ = C::NJ, NO = C::NO, NB = C::NB, RS = C::RS;
   extern __shared__ __align__(16) float smem[];
@@ -753,7 +756,7 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const int PT = ROWS / GP;        // positions per q tile
   const int p0 = t * PT;
   const int n_kv = (Skv + BK - 1) / BK;
-  const int n_kt = causal ? min(n_kv, (min(p0 + PT, Sq) - 1) / BK + 1) : n_kv;
+  const int n_kt = causal ? min(n_kv, (min(p0 + PT, Sq) - 1 + off) / BK + 1) : n_kv;
   const int n_it = (n_kt + SPLITS - 1) / SPLITS;  // K/V tiles a group takes
   const size_t q_row = size_t(KV) * G * HD;  // stride of one position in q / out
   const size_t k_row = size_t(KV) * HD;      // stride of one position in k / v
@@ -797,7 +800,7 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
   const int first = p0 + r0 / GP, last = p0 + (r0 + 15) / GP;  // the warp's positions
   const int qpos0 = p0 + (r0 + gq) / GP, qpos1 = p0 + (r0 + gq + 8) / GP;
   int need = 0;  // K/V tiles the warp's rows need
-  if (first < Sq) need = causal ? min(n_kv, min(last, Sq - 1) / BK + 1) : n_kv;
+  if (first < Sq) need = causal ? min(n_kv, (min(last, Sq - 1) + off) / BK + 1) : n_kv;
   const float* qw = qs + (r0 + gq) * RS + tq;
 
   float acc[NO][4];
@@ -842,7 +845,7 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
     // key kt * BK + 8 * j + 2 * tq + (e & 1). Only a tile on the diagonal,
     // past Skv or with rows past Sq needs the mask.
     const bool masked =
-        (kt + 1) * BK > Skv || (causal && (kt + 1) * BK - 1 > first) || last >= Sq;
+        (kt + 1) * BK > Skv || (causal && (kt + 1) * BK - 1 > first + off) || last >= Sq;
     const int key0 = kt * BK + 2 * tq;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -853,7 +856,7 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
         if (masked) {
           const int kpos = key0 + 8 * j + (e & 1);
           const int qpos = e < 2 ? qpos0 : qpos1;
-          if (!(kpos < Skv && qpos < Sq && (!causal || qpos >= kpos))) x = -INFINITY;
+          if (!(kpos < Skv && qpos < Sq && (!causal || qpos + off >= kpos))) x = -INFINITY;
         }
         sc[j][e] = x;
         if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
@@ -952,7 +955,7 @@ flash_fwd_tf32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv, int KV,
-           int G, float scale, int causal, cudaStream_t stream) {
+           int G, float scale, int causal, int off, cudaStream_t stream) {
   using C = Cfg<HD>;
   const int GP = ROWS % G == 0 ? G : 1;  // heads packed per 64-row tile
   const int PT = ROWS / GP;
@@ -964,7 +967,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   const unsigned blocks = unsigned(n_tiles) * unsigned(B) * unsigned(KV * (G / GP));
   kernel<<<blocks, THREADS, C::SMEM, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), B, Sq, Skv, KV, G, GP, n_tiles, scale, causal);
+      static_cast<float*>(o), B, Sq, Skv, KV, G, GP, n_tiles, scale, causal, off);
   return int(cudaGetLastError());
 }
 
@@ -972,29 +975,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 }  // namespace
 
+// causal_offset: with causal, query row i sees the keys <= causal_offset + i
+// (0: top-left; a block of a sequence-sharded query starts at its first row).
 // dtype: 0 float32 (3xTF32 mma.sync kernel), 1 bfloat16 (wgmma kernel). Returns
 // the CUDA status of the launch (0 on success, -1 where a TMA map could not
 // be encoded); the wrapper raises on anything else.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int B, int Sq, int Skv, int KV, int G, int hd,
-                                      float scale, int causal, int dtype, void* stream) {
+                                      float scale, int causal, int causal_offset, int dtype,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || G <= 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || Sq <= 0 || Skv <= 0 || KV <= 0 || G <= 0 || causal_offset < 0)
+    return int(cudaErrorInvalidValue);
+  const int off = causal_offset;
   if (dtype == 0) {
     switch (hd) {
-      case 32: return f32::launch<32>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
-      case 64: return f32::launch<64>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
-      case 128: return f32::launch<128>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
-      case 256: return f32::launch<256>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
+      case 32: return f32::launch<32>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
+      case 64: return f32::launch<64>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
+      case 128: return f32::launch<128>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
+      case 256: return f32::launch<256>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
       default: return int(cudaErrorInvalidValue);
     }
   }
   if (dtype != 1) return int(cudaErrorInvalidValue);
   switch (hd) {
-    case 32: return wg::launch<32>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
-    case 64: return wg::launch<64>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
-    case 128: return wg::launch<128>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
-    case 256: return wg::launch<256>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, st);
+    case 32: return wg::launch<32>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
+    case 64: return wg::launch<64>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
+    case 128: return wg::launch<128>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
+    case 256: return wg::launch<256>(q, k, v, o, B, Sq, Skv, KV, G, scale, causal, off, st);
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -3,7 +3,8 @@
 
 The kernel replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_fwd``: GQA attention
-with an online softmax in float32, the causal mask aligned top-left, keys and
+with an online softmax in float32, the causal mask aligned top-left (or
+moved down by ``offset`` rows for a block of a sequence-sharded query), keys and
 queries past the sequence masked, output in q's dtype. It takes the model's
 layouts directly: q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd), float32 or
 bfloat16, head_dim in {32, 64, 128, 256}. Both dtypes pack the G query heads
@@ -43,17 +44,18 @@ def build(force: bool = False) -> dict:
     lib, info = build_library("flash_attention", force)
     fn = lib.flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     _lib = lib
     return info
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True):
+def flash_attention_fwd(q, k, v, *, causal: bool = True, offset: int = 0):
     """q (B, Sq, KV, G, hd); k/v (B, Skv, KV, hd): contiguous CUDA tensors of
     one dtype (float32 or bfloat16). Launches the kernel on the current
-    stream and returns out (B, Sq, KV, G, hd) in q's dtype."""
+    stream and returns out (B, Sq, KV, G, hd) in q's dtype. With ``causal``,
+    query row i sees the keys <= ``offset`` + i (0: top-left)."""
     global launches
     if not q.is_cuda:
         raise ValueError(f"flash_attention: the CUDA kernel needs CUDA tensors, got {q.device}")
@@ -76,6 +78,8 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
+    if offset < 0:
+        raise ValueError(f"flash_attention: offset must be >= 0, got {offset}")
     if min(B, Sq, Skv, KV, G) == 0:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
     # the kernels copy q/k/v rows in 16-byte pieces (cp.async, TMA); a view
@@ -88,7 +92,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = _lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Skv, KV, G, hd,
-            float(hd ** -0.5), int(causal), DTYPES[q.dtype], stream,
+            float(hd ** -0.5), int(causal), int(offset), DTYPES[q.dtype], stream,
         )
     if status == -1:
         raise RuntimeError("flash_attention: cuTensorMapEncodeTiled failed on the TMA maps")

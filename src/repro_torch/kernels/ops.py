@@ -59,33 +59,41 @@ class FlashAttention(torch.autograd.Function):
     tensors with ``backend="auto"``, else the plain version; the backward is
     ``ref.flash_attention_bwd`` at blocks of ``qb`` query rows and ``kb`` keys
     (the reference's 512 / 1024 by default), from the saved q, k, v and
-    output."""
+    output. ``offset``: the query rows are rows offset.. of the keys'
+    sequence (a causal row i sees keys <= offset + i)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, backend, qb, kb):
+    def forward(ctx, q, k, v, causal, backend, qb, kb, offset=0):
         if backend == "auto" and q.is_cuda:
             from repro_torch.kernels.flash_attention import flash_attention_fwd
 
             out = flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                      causal=causal)
+                                      causal=causal, offset=offset)
         else:
-            out = _ref.flash_attention_plain(q, k, v, causal)
+            out = _ref.flash_attention_plain(q, k, v, causal, offset=offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.causal, ctx.qb, ctx.kb = causal, qb, kb
+        ctx.causal, ctx.qb, ctx.kb, ctx.offset = causal, qb, kb, offset
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
         with torch.profiler.record_function(FLASH_BWD_RANGE):
-            dq, dk, dv = _ref.flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.qb, ctx.kb)
-        return dq, dk, dv, None, None, None, None
+            dq, dk, dv = _ref.flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.qb, ctx.kb,
+                                                  ctx.offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
-def flash_attention(q, k, v, causal: bool = True, backend: str = "auto"):
+def flash_attention(q, k, v, causal: bool = True, backend: str = "auto", offset: int = 0):
+    """``offset`` >= 0 moves the causal diagonal: query row i is row offset + i
+    of the keys' sequence (a block of a sequence-sharded query); 0 is the
+    reference's top-left mask."""
     if backend not in ("auto", "reference"):
         raise ValueError(f"backend must be 'auto' or 'reference', got {backend!r}")
-    return FlashAttention.apply(q, k, v, causal, backend, _ref.DEFAULT_QB, _ref.DEFAULT_KB)
+    if offset < 0:
+        raise ValueError(f"flash_attention: offset must be >= 0, got {offset}")
+    return FlashAttention.apply(q, k, v, causal, backend, _ref.DEFAULT_QB, _ref.DEFAULT_KB,
+                                int(offset))
 
 
 # ----------------------------------------------------------------------------

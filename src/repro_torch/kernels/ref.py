@@ -162,7 +162,7 @@ def tf32_einsum(eq, a, b, terms: int = 3):
 # ----------------------------------------------------------------------------
 # flash attention — q (B, Sq, KV, G, hd), k/v (B, Skv, KV, hd)
 # ----------------------------------------------------------------------------
-def _flash_blocks(q, k, v, causal: bool, qb: int, kb: int):
+def _flash_blocks(q, k, v, causal: bool, qb: int, kb: int, offset: int = 0):
     """Blockwise streaming softmax over kv tiles of ``kb`` keys, with q padded
     to a multiple of ``qb`` rows as the kernel tiles it. Returns the padded
     float32 output (B, KV, G, Sq_pad, hd); padded rows are fully masked and
@@ -184,7 +184,7 @@ def _flash_blocks(q, k, v, causal: bool, qb: int, kb: int):
         k_pos = torch.arange(k_start, k_start + kt.shape[1], device=dev)[None, :]
         mask = (k_pos < Skv) & (q_pos < Sq)
         if causal:
-            mask = mask & (q_pos >= k_pos)
+            mask = mask & (q_pos + offset >= k_pos)
         s = torch.where(mask, s, -torch.inf)
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -196,13 +196,16 @@ def _flash_blocks(q, k, v, causal: bool, qb: int, kb: int):
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
-def flash_attention_plain(q, k, v, causal: bool = True, qb: int = 32, kb: int = 32):
+def flash_attention_plain(q, k, v, causal: bool = True, qb: int = 32, kb: int = 32,
+                          offset: int = 0):
     """Plain version of the flash kernel (its 32-row q tiles and 32-key kv
     tiles by default): masks ``k_pos < Skv``, ``q_pos < Sq`` and, if causal,
-    ``q_pos >= k_pos`` (top-left aligned); ``acc / max(l, 1e-30)``; float32
-    inside, q's dtype out, in q's (B, Sq, KV, G, hd) layout."""
+    ``q_pos + offset >= k_pos`` (top-left aligned, or with the query rows
+    starting at row ``offset`` of the keys' sequence); ``acc / max(l,
+    1e-30)``; float32 inside, q's dtype out, in q's (B, Sq, KV, G, hd)
+    layout."""
     Sq = q.shape[1]
-    out = _flash_blocks(q, k, v, causal, qb, kb)[:, :, :, :Sq]
+    out = _flash_blocks(q, k, v, causal, qb, kb, offset)[:, :, :, :Sq]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
@@ -220,7 +223,8 @@ def _tile_scores(q_i, k_j, q0: int, k0: int, causal: bool, scale: float):
     return s, mask
 
 
-def flash_lse(q, k, causal: bool = True, qb: int = DEFAULT_QB, kb: int = DEFAULT_KB):
+def flash_lse(q, k, causal: bool = True, qb: int = DEFAULT_QB, kb: int = DEFAULT_KB,
+              offset: int = 0):
     """float32 log-sum-exp of each query row's scaled, masked scores, (B, KV,
     G, Sq): the reference's ``_fwd_streaming`` (``m + log(max(l, 1e-30))``,
     m and l streamed over tiles of ``kb`` keys for blocks of ``qb`` rows)."""
@@ -235,7 +239,7 @@ def flash_lse(q, k, causal: bool = True, qb: int = DEFAULT_QB, kb: int = DEFAULT
         m = torch.full((B, KV, G, q_i.shape[1]), -torch.inf, dtype=F32, device=q.device)
         l = torch.zeros_like(m)
         for k0 in range(0, Skv, kb):
-            s, mask = _tile_scores(q_i, kf[:, k0:k0 + kb], q0, k0, causal, scale)
+            s, mask = _tile_scores(q_i, kf[:, k0:k0 + kb], q0 + offset, k0, causal, scale)
             s = torch.where(mask, s, -torch.inf)
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
@@ -248,7 +252,7 @@ def flash_lse(q, k, causal: bool = True, qb: int = DEFAULT_QB, kb: int = DEFAULT
 
 
 def flash_attention_bwd(q, k, v, out, dout, causal: bool = True, qb: int = DEFAULT_QB,
-                        kb: int = DEFAULT_KB):
+                        kb: int = DEFAULT_KB, offset: int = 0):
     """Gradient of attention, the reference's ``_flash_bwd``: the log-sum-exp
     recomputed (``flash_lse``), ``D = rowsum(dout · out)``, and per (block of
     ``qb`` query rows, block of ``kb`` keys) tile ``p = exp(s - lse)`` on the
@@ -265,7 +269,7 @@ def flash_attention_bwd(q, k, v, out, dout, causal: bool = True, qb: int = DEFAU
     scale = hd**-0.5
     qb, kb = min(qb, Sq), min(kb, Skv)
     qf, kf, vf, dof = (t.to(F32) for t in (q, k, v, dout))
-    lse = flash_lse(qf, kf, causal, qb, kb)
+    lse = flash_lse(qf, kf, causal, qb, kb, offset)
     D = torch.einsum("bqkgh,bqkgh->bkgq", dof, out.to(F32))
     dq = torch.zeros_like(qf)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
@@ -274,7 +278,7 @@ def flash_attention_bwd(q, k, v, out, dout, causal: bool = True, qb: int = DEFAU
         lse_i, D_i = lse[..., q0:q0 + qb, None], D[..., q0:q0 + qb, None]
         for k0 in range(0, Skv, kb):
             k_j, v_j = kf[:, k0:k0 + kb], vf[:, k0:k0 + kb]
-            s, mask = _tile_scores(q_i, k_j, q0, k0, causal, scale)
+            s, mask = _tile_scores(q_i, k_j, q0 + offset, k0, causal, scale)
             p = torch.where(mask, torch.exp(torch.where(mask, s, -torch.inf) - lse_i), 0.0)
             dp = torch.einsum("bqkgh,btkh->bkgqt", do_i, v_j)
             ds = p * (dp - D_i) * scale

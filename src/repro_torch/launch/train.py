@@ -5,8 +5,10 @@
 runs the Trainer loop (checkpoints and automatic restart) in float32 on the
 CUDA device unless ``--device`` names another, as ``python -m
 repro.launch.train`` does on the reference. The reference's
-``--production-mesh`` (a sharded TPU mesh) needs multi-GPU support, which
-the port does not have yet (ROADMAP).
+``--production-mesh`` (training sharded over a device mesh) needs the
+sharded train step, which the port does not have yet: its mesh serves
+(``launch.mesh``, ``launch.specs``), and the sharded train step is the next
+slice (ROADMAP).
 """
 import argparse
 
@@ -27,7 +29,8 @@ def main(argv=None):
     ap.add_argument("--production-mesh", action="store_true")
     args = ap.parse_args(argv)
     if args.production_mesh:
-        ap.error("--production-mesh needs a device mesh; the port runs on one device (ROADMAP)")
+        ap.error("--production-mesh needs the sharded train step, not ported yet; the port's "
+                 "mesh serves only (ROADMAP, Queue 1 item 6)")
 
     import torch
 

@@ -9,9 +9,15 @@ Decode is the O(1) recurrent form over a conv ring buffer and an SSM state
 in float32, both written into the cache in place.
 
 Parameters keep the reference's leaves and layouts; ``a_log``, ``d_skip``
-and ``dt_bias`` stay float32 whatever the model's dtype.
+and ``dt_bias`` stay float32 whatever the model's dtype. On a mesh each rank
+runs the whole mixer on its batch rows with the weights gathered (the
+reference splits the heads over the model axis, ``repro/models/mamba.py:162``;
+mamba2-130m, its one Mamba model that fits a card, is pure data parallel and
+has no model axis).
 """
 from __future__ import annotations
+
+import types
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +25,7 @@ from torch import nn
 
 from repro_torch.configs.base import MambaSpec, ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Runtime, _param
+from repro_torch.models.layers import Runtime, _param, local_weight
 
 F32 = torch.float32
 
@@ -75,6 +81,9 @@ def apply_mamba(p: Mamba, x, cfg: ModelConfig, runtime: Runtime, *, cache=None,
     d_in, nh, N, Pd = m.d_inner(cfg.d_model), m.n_heads(cfg.d_model), m.d_state, m.head_dim
     dt_c = runtime.compute_dtype
     B, S, _ = x.shape
+    if runtime.mesh is not None:  # every rank runs the whole mixer on its batch rows
+        p = types.SimpleNamespace(**{name: local_weight(w, runtime)
+                                     for name, w in p.named_parameters()})
 
     zxbcdt = x @ p.w_in.to(dt_c)
     z, xin, bmat, cmat, dt_raw = torch.split(zxbcdt, [d_in, d_in, N, N, nh], dim=-1)

@@ -152,9 +152,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, param_dtype=F32,
 # Forward passes
 # ----------------------------------------------------------------------------
 def _apply_block(block: Block, x, cfg: ModelConfig, runtime: Runtime, *, positions,
-                 memory=None, cache=None):
+                 memory=None, cache=None, batch=None):
     """Returns (x + the block's output, its aux loss or None, its new cache
-    or None)."""
+    or None). On a mesh ``x`` holds this rank's rows of a batch of
+    ``batch``."""
     h = L.apply_norm(block.norm, x, cfg)
     aux = new_cache = None
     if block.kind == "self_attn":
@@ -166,23 +167,26 @@ def _apply_block(block: Block, x, cfg: ModelConfig, runtime: Runtime, *, positio
     elif block.kind == "mlp":
         y = L.apply_mlp(block.mlp, h, cfg, runtime)
     elif block.kind == "moe":
-        y, aux = MOE.apply_moe(block.moe, h, cfg, runtime, cf=cfg.moe_cf)
+        y, aux = MOE.apply_moe(block.moe, h, cfg, runtime, cf=cfg.moe_cf, batch=batch)
     else:
         y, new_cache = MB.apply_mamba(block.mamba, h, cfg, runtime, cache=cache)
     return x + y, aux, new_cache
 
 
-def _apply_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions, memory):
+def _apply_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions, memory,
+                 batch=None):
     """One stage repeat's blocks (no cache): returns (x, aux_total plus the
     MoE blocks' aux)."""
     for block in layer:
-        x, aux, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory)
+        x, aux, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory,
+                                 batch=batch)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
 
 
-def _remat_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions, memory):
+def _remat_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions, memory,
+                 batch=None):
     """``_apply_layer`` under ``torch.utils.checkpoint``: the backward
     recomputes the layer (launching its kernels again). The recompute records
     no expert ids, and where the forward's MoE blocks replayed ids it replays
@@ -194,9 +198,10 @@ def _remat_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positi
         calls[0] += 1
         if calls[0] > 1:
             with MOE.recomputing(routes if replayed else None):
-                return _apply_layer(layer, x, aux_total, cfg, runtime, positions, memory)
+                return _apply_layer(layer, x, aux_total, cfg, runtime, positions, memory,
+                                    batch)
         with MOE.recording_routes() as ids:
-            out = _apply_layer(layer, x, aux_total, cfg, runtime, positions, memory)
+            out = _apply_layer(layer, x, aux_total, cfg, runtime, positions, memory, batch)
         routes.extend(ids)
         return out
 
@@ -204,27 +209,60 @@ def _remat_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positi
 
 
 def _apply_layers(layers, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions,
-                  memory=None):
+                  memory=None, batch=None):
     """The layers in order, each rematerialised (``_remat_layer``) where the
     config asks for it and a gradient is being recorded."""
     remat = cfg.remat_policy != "none" and torch.is_grad_enabled()
     apply = _remat_layer if remat else _apply_layer
     for layer in layers:
-        x, aux_total = apply(layer, x, aux_total, cfg, runtime, positions, memory)
+        x, aux_total = apply(layer, x, aux_total, cfg, runtime, positions, memory, batch)
     return x, aux_total
 
 
 def _embed(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens):
     dt = runtime.compute_dtype
-    x = torch.nn.functional.embedding(tokens, lm.embed).to(dt)
+    if runtime.mesh is None:
+        x = torch.nn.functional.embedding(tokens, lm.embed).to(dt)
+    else:
+        x = _embed_mesh(lm.embed, runtime, tokens).to(dt)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dt, device=x.device)
     return x
 
 
-def _head(lm: LM, cfg: ModelConfig, runtime: Runtime, x):
+def _embed_mesh(embed, runtime: Runtime, tokens):
+    """The embedding lookup on a mesh, from the table's storage shards: with
+    the vocabulary split over the model axis each rank looks up the tokens in
+    its rows and the (one-hot) results are summed; with d split, the rows'
+    blocks are gathered."""
+    c = L.model_shard_dim(embed, runtime)
+    if c == 0:
+        table = L.local_weight(embed, runtime, 0)
+        idx = tokens - L.model_rank(runtime) * table.shape[0]
+        inside = (idx >= 0) & (idx < table.shape[0])
+        x = torch.nn.functional.embedding(torch.where(inside, idx, 0), table)
+        return L.model_all_reduce(torch.where(inside[..., None], x, 0), runtime)
+    if c == 1:
+        x = torch.nn.functional.embedding(tokens, L.local_weight(embed, runtime, 1))
+        return L.model_all_gather(x, runtime, dim=-1)
+    return torch.nn.functional.embedding(tokens, L.local_weight(embed, runtime))
+
+
+def _head(lm: LM, cfg: ModelConfig, runtime: Runtime, x, batch=None):
+    """Final norm and the vocabulary projection. On a mesh ``x`` holds this
+    rank's rows of a batch of ``batch``, and the logits come back as a
+    ``DTensor`` laid out as the reference constrains them: batch over the
+    data axes, the vocabulary over the model axis (where it divides)."""
     x = L.apply_norm(lm.final_norm, x, cfg)
     dt = runtime.compute_dtype
+    if runtime.mesh is not None:
+        n = runtime.model_axis_size
+        split = n > 1 and cfg.vocab % n == 0
+        w = L.transposed(lm.embed) if cfg.tie_embeddings else lm.lm_head
+        logits = L.matmul(x, w, runtime, 1, out_shard=1 if split else None)
+        spec = (L.batch_axes(runtime, batch) or None, None,
+                runtime.model_axis if split else None)
+        return L.as_global(logits, runtime, spec, (batch, x.shape[1], cfg.vocab))
     if cfg.tie_embeddings:
         return x @ lm.embed.to(dt).T
     return x @ lm.lm_head.to(dt)
@@ -234,22 +272,31 @@ def _tokens(tokens, runtime: Runtime):
     return torch.as_tensor(tokens, device=runtime.device)
 
 
-def _encode_memory(lm: LM, cfg: ModelConfig, runtime: Runtime, extra_inputs):
+def _encode_memory(lm: LM, cfg: ModelConfig, runtime: Runtime, extra_inputs, rows=None):
     """The cross-attention source (B, S_src, d) in the compute dtype, or
     None: vlm projects ``patches``, audio runs the encoder over ``frames`` at
     positions 0..F-1. A precomputed ``memory`` (the encoder output memoised
-    at admission, the serving path) short-circuits both."""
+    at admission, the serving path) short-circuits both. On a mesh, ``rows``
+    (this rank's batch rows) are taken from the global inputs."""
     dt, dev = runtime.compute_dtype, runtime.device
+
+    def given(name):
+        t = torch.as_tensor(extra_inputs[name], device=dev)
+        return t if rows is None else t[rows]
+
     if "memory" in extra_inputs:
-        return torch.as_tensor(extra_inputs["memory"], device=dev).to(dt)
+        return given("memory").to(dt)
     if cfg.family == "vlm":
-        patches = torch.as_tensor(extra_inputs["patches"], device=dev).to(dt)
+        patches = given("patches").to(dt)
+        if runtime.mesh is not None:
+            return L.matmul(patches, lm.vision_proj, runtime, 1)
         return torch.einsum("bpv,vd->bpd", patches, lm.vision_proj.to(dt))
     if cfg.family == "audio":
-        x = torch.as_tensor(extra_inputs["frames"], device=dev).to(dt)
+        x = given("frames").to(dt)
         pos = torch.arange(x.shape[1], device=dev)[None, :]
+        batch = None if rows is None else len(extra_inputs["frames"])
         x, _ = _apply_layers(lm.encoder, x, torch.zeros((), dtype=F32, device=dev), cfg,
-                             runtime, pos)
+                             runtime, pos, batch=batch)
         return L.apply_norm(lm.enc_norm, x, cfg)
     return None
 
@@ -257,20 +304,70 @@ def _encode_memory(lm: LM, cfg: ModelConfig, runtime: Runtime, extra_inputs):
 def apply_lm(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs=None):
     """Full forward (train / prefill): tokens (B, S) -> logits (B, S, V), aux
     (the MoE blocks' load-balance losses summed over the layers; 0 without
-    MoE)."""
+    MoE). On a mesh every rank passes the same (global) inputs, computes its
+    batch rows, and gets the logits as a ``DTensor`` (``_head``)."""
     tokens = _tokens(tokens, runtime)
-    S = tokens.shape[1]
-    x = _embed(lm, cfg, runtime, tokens)
+    B, S = tokens.shape
+    rows = None if runtime.mesh is None else L.batch_rows(runtime, B)
+    x = _embed(lm, cfg, runtime, tokens if rows is None else tokens[rows])
     positions = torch.arange(S, device=x.device)[None, :]
-    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {})
+    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {}, rows)
     x, aux_total = _apply_layers(lm.layers, x, torch.zeros((), dtype=F32, device=x.device),
-                                 cfg, runtime, positions, memory)
-    return _head(lm, cfg, runtime, x), aux_total
+                                 cfg, runtime, positions, memory, B)
+    return _head(lm, cfg, runtime, x, B), aux_total
 
 
 # ----------------------------------------------------------------------------
 # Decode
 # ----------------------------------------------------------------------------
+def cache_spec(name: str, shape, mesh, axes: tuple, model_n: int) -> tuple:
+    """The spec of cache leaf ``name`` of global ``shape`` (the reference's
+    ``launch/specs.py::cache_shardings``): batch over the data axes (where
+    they divide it), the K/V caches' T, the conv state's channels and the SSM
+    state's heads over 'model' (where ``model_n`` > 1 divides them)."""
+    from repro_torch.launch.mesh import mesh_shape
+
+    ms = mesh_shape(mesh)
+    mdl = "model" if model_n > 1 else None
+    if name in ("k", "v"):
+        tsp = mdl if (mdl and shape[3] % model_n == 0) else None
+        return (None, L._maybe(axes, shape[1], ms), None, tsp, None)
+    if name == "conv":
+        csp = mdl if (mdl and shape[3] % model_n == 0) else None
+        return (None, L._maybe(axes, shape[1], ms), None, csp)
+    if name == "ssm":
+        hsp = mdl if (mdl and shape[2] % model_n == 0) else None
+        return (None, L._maybe(axes, shape[1], ms), hsp, None, None)
+    return ()
+
+
+def cache_model_n(runtime: Runtime) -> int:
+    """The model axis size the cache splits over: 1 where the runtime folds
+    'model' into the data axes (pure data parallel)."""
+    from repro_torch.launch.mesh import mesh_shape
+
+    if "model" in runtime.data_axes:
+        return 1
+    return mesh_shape(runtime.mesh).get("model", 1)
+
+
+def _cache_leaf(name, shape, dtype, runtime: Runtime):
+    """A zero cache leaf: a tensor, or on a mesh a ``DTensor`` of the global
+    ``shape`` whose local shard (only) is allocated."""
+    dev = runtime.device
+    if runtime.mesh is None:
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    from repro_torch.launch.mesh import mesh_shape
+
+    ms = mesh_shape(runtime.mesh)
+    spec = cache_spec(name, shape, runtime.mesh, runtime.data_axes, cache_model_n(runtime))
+    local = list(shape)
+    for dim, entry in enumerate(spec):
+        for axis in ((entry,) if isinstance(entry, str) else (entry or ())):
+            local[dim] //= ms[axis]
+    return L.as_global(torch.zeros(local, dtype=dtype, device=dev), runtime, spec, shape)
+
+
 def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
                dtype=torch.bfloat16):
     """Cache mirroring the stage structure: caches[f"stage{si}"][f"b{i}"] =
@@ -278,9 +375,10 @@ def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
     attention, {"conv": (repeat, B, K-1, Ch) in ``dtype``, "ssm": (repeat, B,
     H, P, N) float32 whatever ``dtype``} for Mamba. Cross-attention keeps no
     cache: it recomputes k/v from the memory at every step, as the
-    reference does."""
+    reference does. On a mesh every leaf is a ``DTensor`` laid out by
+    ``cache_spec`` (T of the K/V caches over 'model'), each rank holding its
+    shard."""
     hd = cfg.resolved_head_dim
-    dev = runtime.device
     m = cfg.mamba
     caches = {}
     for si, stage in enumerate(cfg.stages()):
@@ -289,20 +387,56 @@ def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
             if kind == "self_attn":
                 shape = (stage.repeat, batch, cfg.kv_heads, max_len, hd)
                 st[f"b{i}"] = {
-                    "k": torch.zeros(shape, dtype=dtype, device=dev),
-                    "v": torch.zeros(shape, dtype=dtype, device=dev),
-                    "index": torch.zeros((stage.repeat,), dtype=torch.int32, device=dev),
+                    "k": _cache_leaf("k", shape, dtype, runtime),
+                    "v": _cache_leaf("v", shape, dtype, runtime),
+                    "index": _cache_leaf("index", (stage.repeat,), torch.int32, runtime),
                 }
             elif kind == "mamba":
                 d_in, nh = m.d_inner(cfg.d_model), m.n_heads(cfg.d_model)
                 st[f"b{i}"] = {
-                    "conv": torch.zeros((stage.repeat, batch, m.d_conv - 1, d_in + 2 * m.d_state),
-                                        dtype=dtype, device=dev),
-                    "ssm": torch.zeros((stage.repeat, batch, nh, m.head_dim, m.d_state),
-                                       dtype=F32, device=dev),
+                    "conv": _cache_leaf("conv", (stage.repeat, batch, m.d_conv - 1,
+                                                 d_in + 2 * m.d_state), dtype, runtime),
+                    "ssm": _cache_leaf("ssm", (stage.repeat, batch, nh, m.head_dim, m.d_state),
+                                       F32, runtime),
                 }
         caches[f"stage{si}"] = st if st else None
     return caches
+
+
+def _local(t):
+    return t.to_local() if L._is_dtensor(t) else t
+
+
+def _layer_cache(blk, kind: str, r: int, runtime: Runtime, index: int):
+    """Repeat ``r`` of a block's cache as ``apply_attention`` / ``apply_mamba``
+    take it, and a function that writes a Mamba state back where it was
+    gathered. On a mesh the K/V caches stay this rank's shard (with its first
+    position and the split of T); a Mamba state split over 'model' is
+    gathered whole (the mixer runs whole on every rank)."""
+    if kind == "self_attn":
+        k = _local(blk["k"])[r]
+        cache = {"k": k, "v": _local(blk["v"])[r], "index": index}
+        if L._is_dtensor(blk["k"]):
+            split = L.model_shard_dim(blk["k"], runtime) == 3
+            cache["t_shards"] = runtime.model_axis_size if split else 1
+            cache["t0"] = L.model_rank(runtime) * k.shape[2] if split else 0
+        return cache, None
+    cache, parts = {}, []
+    for name in ("conv", "ssm"):
+        local = _local(blk[name])[r]
+        dim = L.model_shard_dim(blk[name], runtime) if L._is_dtensor(blk[name]) else None
+        if dim is None:
+            cache[name] = local
+        else:
+            cache[name] = L.model_all_gather(local, runtime, dim - 1)
+            parts.append((name, local, dim - 1))
+
+    def write_back():
+        n, j = runtime.model_axis_size, L.model_rank(runtime)
+        for name, local, dim in parts:
+            local.copy_(cache[name].chunk(n, dim=dim)[j])
+
+    return cache, write_back
 
 
 def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, index: int,
@@ -310,29 +444,33 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
     """One decode step. tokens (B, 1); index: the step's position. Writes
     this step's k/v (attention) or conv/ssm states (Mamba) into ``caches`` in
     place and returns (logits (B, 1, V), caches) with every attention layer's
-    cache index set to ``index``."""
+    cache index set to ``index``. Tokens (B, S) with S > 1 at ``index`` 0
+    prefill the cache with positions 0..S-1 (the reference's prefill-fill
+    branch, whose positions the reference's decode step does not set). On a
+    mesh the inputs are global and the caches ``init_cache``'s, as in
+    ``apply_lm``."""
     index = int(index)
     tokens = _tokens(tokens, runtime)
-    x = _embed(lm, cfg, runtime, tokens)
-    positions = torch.full((1, 1), index, device=x.device)
-    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {})
+    B, S = tokens.shape
+    rows = None if runtime.mesh is None else L.batch_rows(runtime, B)
+    x = _embed(lm, cfg, runtime, tokens if rows is None else tokens[rows])
+    positions = (index + torch.arange(S, device=x.device))[None, :]
+    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {}, rows)
     for layer, (si, r) in zip(lm.layers, lm.stage_of):
         st = caches.get(f"stage{si}")
         for i, block in enumerate(layer):
-            cache = None
-            if block.kind == "self_attn":
-                blk = st[f"b{i}"]
-                cache = {"k": blk["k"][r], "v": blk["v"][r], "index": index}
-            elif block.kind == "mamba":
-                blk = st[f"b{i}"]
-                cache = {"conv": blk["conv"][r], "ssm": blk["ssm"][r]}
+            cache = write_back = None
+            if block.kind in ("self_attn", "mamba"):
+                cache, write_back = _layer_cache(st[f"b{i}"], block.kind, r, runtime, index)
             x, _, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory,
-                                   cache=cache)
+                                   cache=cache, batch=B)
+            if write_back is not None:
+                write_back()
     for st in caches.values():
         for blk in (st or {}).values():
             if "index" in blk:  # attention caches only; a Mamba cache has no index
-                blk["index"].fill_(index)
-    return _head(lm, cfg, runtime, x), caches
+                _local(blk["index"]).fill_(index)
+    return _head(lm, cfg, runtime, x, B), caches
 
 
 # ----------------------------------------------------------------------------
@@ -344,6 +482,7 @@ def lm_loss(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, labels, extra_in
     float32 logits (logsumexp minus the gold logit), plus ``aux_coeff`` times
     the MoE aux. Returns (loss, {"nll", "aux"})."""
     logits, aux = apply_lm(lm, cfg, runtime, tokens, extra_inputs)
+    logits = L.whole(logits)  # on a mesh: every rank takes the whole loss
     logits = logits.to(F32)
     lse = torch.logsumexp(logits, dim=-1)
     labels = torch.as_tensor(labels, device=logits.device).long()

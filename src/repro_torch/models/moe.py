@@ -1,12 +1,26 @@
 """Mixture-of-Experts block of the reference's model substrate
-(``repro/models/moe.py``), in PyTorch, in the reference's ``local`` mode:
-router and top-k, then a capacity-based scatter into per-expert buffers
-(E, C, d), the batched expert product, and the gather back.
+(``repro/models/moe.py``), in PyTorch: router and top-k, then the dispatch,
+expert products and combine in one of the reference's three modes:
 
-The reference's ``a2a`` and ``replicated`` modes spread the experts over a
-device mesh; the port runs on one device, where the reference takes this
-mode too (``mesh is None``). Tokens past an expert's capacity fall through
-with a zero update; ``cf = E / top_k`` is dropless.
+  local       one device (or a model axis of 1): a capacity-based scatter
+              into per-expert buffers (E, C, d), the batched expert product,
+              and the gather back.
+  a2a         on a mesh, where the tokens of a data shard divide the model
+              axis (prefill): each model rank takes its block of the
+              tokens, scatters them into fixed-capacity (E, C_loc, d)
+              buffers, exchanges them by a tiled all-to-all so that each
+              rank holds its E / n experts' slots from every rank, runs its
+              experts, returns the results by the inverse all-to-all,
+              combines its tokens, and the blocks are all-gathered.
+  replicated  decode-sized token counts: every model rank dispatches all the
+              tokens of its data shard to its local experts (global ids
+              mapped to local slots, other experts' slots dropped), and the
+              partial results are all-reduced over the model axis.
+
+The reference writes the last two as ``shard_map`` bodies; here they are the
+same code on each rank's local shards with the same collectives on the model
+axis's process group. Tokens past an expert's capacity fall through with a
+zero update; ``cf = E / top_k`` is dropless (and the modes then agree).
 
 Parameters keep the reference's leaves: ``router`` (d, E) in float32 whatever
 the model's dtype (cast to the compute dtype before the product, as the
@@ -22,7 +36,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Runtime, _param
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.models.layers import (Runtime, _param, batch_axes, batch_mean,
+                                       batch_rows, local_weight, matmul, model_all_gather,
+                                       model_all_reduce, model_rank)
 
 F32 = torch.float32
 _ROUTE_SINKS: list[list] = []  # lists collecting expert ids, see recording_routes
@@ -128,34 +147,134 @@ def _moe_block_local(x2, ids, pk, w_gate, w_up, w_down, E, k, C, act, dt):
     pk: (T, k). A dropped slot adds zeros at position 0 of its expert (the
     reference's ``.at[e, pos].add``), so it never overwrites the token kept
     there."""
-    T, d = x2.shape
+    T = x2.shape[0]
     pos = _dispatch_positions(ids.reshape(-1), E).reshape(T, k)
     keep = pos < C
     slot = torch.where(keep, pos, 0)
-    xe = torch.zeros((E, C, d), dtype=x2.dtype, device=x2.device)
-    for i in range(k):
-        xe.index_put_((ids[:, i], slot[:, i]), torch.where(keep[:, i, None], x2, 0),
-                      accumulate=True)
-    ye = _expert_ffn(xe, w_gate, w_up, w_down, act, dt)
-    y = torch.zeros((T, d), dtype=ye.dtype, device=ye.device)
-    for i in range(k):
+    ye = _expert_ffn(_scatter(x2, ids, slot, keep, E, C), w_gate, w_up, w_down, act, dt)
+    return _combine(ye, ids, slot, keep, pk, dt)
+
+
+def _scatter(x2, ids, slot, keep, n_exp: int, C: int):
+    """Each kept (token, slot) of x2 (T, d) into its expert's buffer at its
+    position: (n_exp, C, d)."""
+    buf = torch.zeros((n_exp, C, x2.shape[1]), dtype=x2.dtype, device=x2.device)
+    for i in range(ids.shape[1]):
+        buf.index_put_((ids[:, i], slot[:, i]), torch.where(keep[:, i, None], x2, 0),
+                       accumulate=True)
+    return buf
+
+
+def _combine(ye, ids, slot, keep, pk, dt):
+    """Each token's kept slots gathered from the experts' outputs ye (n_exp,
+    C, d), weighted by pk: (T, d)."""
+    y = torch.zeros((ids.shape[0], ye.shape[-1]), dtype=ye.dtype, device=ye.device)
+    for i in range(ids.shape[1]):
         y_i = ye[ids[:, i], slot[:, i]]
         y = y + torch.where(keep[:, i, None], y_i, 0) * pk[:, i, None].to(dt)
     return y
 
 
-def apply_moe(p: MoE, x, cfg: ModelConfig, runtime: Runtime, cf: float = 1.25):
-    """Returns (y (B, S, d), aux): aux is the Switch load-balance loss
-    E · Σ_e f_e · P_e in float32."""
+def _model_all_to_all(t, runtime: Runtime):
+    """Tiled all-to-all over the model axis: block i of ``t``'s dim 0 goes to
+    model rank i, and block i of the result came from model rank i."""
+    w = t.contiguous()
+    out = torch.empty_like(w)
+    dist.all_to_all_single(out, w, group=runtime.mesh.get_group(runtime.model_axis))
+    return out
+
+
+def moe_mode(cfg: ModelConfig, runtime: Runtime, batch: int, seq: int) -> str:
+    """The reference's choice: ``local`` without a model axis, ``a2a`` where
+    the tokens of a data shard divide the model axis, else
+    ``replicated``."""
+    n = runtime.model_axis_size
+    if runtime.mesh is None or n <= 1:
+        return "local"
+    shape = mesh_shape(runtime.mesh)
+    data_shards = math.prod(shape[a] for a in runtime.data_axes)
+    t_loc = max(batch // data_shards, 1) * seq
+    return "a2a" if t_loc % n == 0 and t_loc >= n else "replicated"
+
+
+def _moe_mesh(p: MoE, x, ids, pk, cfg: ModelConfig, runtime: Runtime, cf: float, batch: int):
+    """The ``a2a`` / ``replicated`` dispatch of ``x`` (this rank's rows of a
+    batch of ``batch``, whole over the model axis) with its routes; returns
+    y in ``x``'s layout."""
     m = cfg.moe
     E, k = m.n_experts, m.top_k
     B, S, d = x.shape
     dt = runtime.compute_dtype
+    n, j = runtime.model_axis_size, model_rank(runtime)
+    shape = mesh_shape(runtime.mesh)
+    data_shards = math.prod(shape[a] for a in runtime.data_axes)
+    rows = batch_axes(runtime, batch)
+    if E % n:
+        raise ValueError(f"moe: {E} experts do not split over a model axis of {n}")
+    if rows and tuple(rows) != tuple(runtime.data_axes):
+        raise NotImplementedError(
+            f"moe: a batch of {batch} split over only {rows} of the data axes "
+            f"{runtime.data_axes}; the reference's shard_map takes all of them or none")
+    E_loc = E // n
+    w_gate, w_up, w_down = (local_weight(w, runtime, 0) for w in (p.w_gate, p.w_up, p.w_down))
+    x2, ids2, pk2 = x.reshape(-1, d), ids.reshape(-1, k), pk.reshape(-1, k)
+    tb = x2.shape[0]
 
-    logits = torch.einsum("bsd,de->bse", x, p.router.to(dt)).to(F32)
+    if moe_mode(cfg, runtime, batch, S) == "a2a":
+        if batch % data_shards:
+            raise ValueError(f"moe a2a: a batch of {batch} does not split over the "
+                             f"{data_shards} data shards")
+        t_my = tb // n
+        C_loc = _capacity(t_my, k, E, cf)
+        mine = slice(j * t_my, (j + 1) * t_my)
+        x_my, ids_my, pk_my = x2[mine], ids2[mine], pk2[mine]
+        pos = _dispatch_positions(ids_my.reshape(-1), E).reshape(t_my, k)
+        keep = pos < C_loc
+        slot = torch.where(keep, pos, 0)
+        buf = _scatter(x_my, ids_my, slot, keep, E, C_loc)
+        # exchange: (E = n·E_loc, C_loc, d) -> (E_loc, n·C_loc, d), sources in rank order
+        recv = _model_all_to_all(buf, runtime).reshape(n, E_loc, C_loc, d)
+        recv = recv.transpose(0, 1).reshape(E_loc, n * C_loc, d)
+        ye = _expert_ffn(recv, w_gate, w_up, w_down, cfg.act, dt)
+        back = ye.reshape(E_loc, n, C_loc, d).transpose(0, 1).contiguous()
+        back = _model_all_to_all(back, runtime).reshape(E, C_loc, d)
+        y_my = _combine(back, ids_my, slot, keep, pk_my, dt)
+        return model_all_gather(y_my, runtime, 0).reshape(B, S, d)
+
+    # replicated: all this data shard's tokens to this rank's experts, psum
+    C = _capacity(max(max(batch // data_shards, 1) * S, 1), k, E, cf)
+    local_ids = ids2 - j * E_loc
+    is_mine = (local_ids >= 0) & (local_ids < E_loc)
+    ids_loc = torch.where(is_mine, local_ids, 0)
+    pos = _dispatch_positions(ids_loc.reshape(-1), E_loc).reshape(tb, k)
+    keep = (pos < C) & is_mine
+    slot = torch.where(keep, pos, 0)
+    ye = _expert_ffn(_scatter(x2, ids_loc, slot, keep, E_loc, C), w_gate, w_up, w_down,
+                     cfg.act, dt)
+    return model_all_reduce(_combine(ye, ids_loc, slot, keep, pk2, dt), runtime).reshape(B, S, d)
+
+
+def apply_moe(p: MoE, x, cfg: ModelConfig, runtime: Runtime, cf: float = 1.25,
+              batch: int | None = None):
+    """Returns (y (B, S, d), aux): aux is the Switch load-balance loss
+    E · Σ_e f_e · P_e in float32. On a mesh ``x`` holds this rank's rows of
+    a batch of ``batch`` (default: ``x``'s own), and replayed routes of the
+    whole batch are cut to those rows."""
+    m = cfg.moe
+    E, k = m.n_experts, m.top_k
+    B, S, d = x.shape
+    batch = B if batch is None else batch
+    dt = runtime.compute_dtype
+
+    if runtime.mesh is None:
+        logits = torch.einsum("bsd,de->bse", x, p.router.to(dt)).to(F32)
+    else:
+        logits = matmul(x, p.router, runtime, 1).to(F32)
     probs = torch.softmax(logits, dim=-1)
     if _ROUTE_SOURCES:
         ids = next(_ROUTE_SOURCES[-1]).to(probs.device)
+        if ids.shape[0] != B:  # the whole batch's routes, on a mesh
+            ids = ids[batch_rows(runtime, ids.shape[0])]
         pk = torch.gather(probs, -1, ids)
     else:
         pk, ids = _top_k(probs, k)
@@ -165,8 +284,12 @@ def apply_moe(p: MoE, x, cfg: ModelConfig, runtime: Runtime, cf: float = 1.25):
 
     f_e = F.one_hot(ids, E).to(F32).sum(dim=2).mean(dim=(0, 1))
     p_e = probs.mean(dim=(0, 1))
+    if runtime.mesh is not None:  # the means over the whole batch
+        f_e, p_e = batch_mean(torch.stack([f_e, p_e]), runtime, batch)
     aux = E * torch.sum(f_e * p_e)
 
+    if runtime.mesh is not None and runtime.model_axis_size > 1:
+        return _moe_mesh(p, x, ids, pk, cfg, runtime, cf, batch), aux
     C = _capacity(B * S, k, E, cf)
     y = _moe_block_local(x.reshape(-1, d), ids.reshape(-1, k), pk.reshape(-1, k),
                          p.w_gate, p.w_up, p.w_down, E, k, C, cfg.act, dt)

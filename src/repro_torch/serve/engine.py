@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import Runtime
+from repro_torch.models.layers import Runtime, last_position, whole
 from repro_torch.models.model import apply_decode, apply_lm, init_cache
 
 
@@ -32,7 +32,10 @@ class Request:
 
 class Engine:
     """Fixed-slot batching over a shared KV cache. ``runtime=None`` is
-    float32 compute on the CUDA device (RuntimeError without one)."""
+    float32 compute on the CUDA device (RuntimeError without one). A runtime
+    with a mesh serves over it: every rank runs the engine on the same
+    requests (its parameters' and caches' shards), and every rank's requests
+    get the same tokens."""
 
     def __init__(self, cfg: ModelConfig, params, runtime: Runtime | None = None,
                  slots: int = 4, max_len: int = 256):
@@ -48,7 +51,7 @@ class Engine:
 
     def _decode(self, params, tokens, caches, index: int):
         logits, new_caches = apply_decode(params, self.cfg, self.runtime, tokens, caches, index)
-        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        nxt = torch.argmax(whole(last_position(logits))[:, 0, :], dim=-1).to(torch.int32)
         return nxt, new_caches
 
     @torch.inference_mode()
@@ -71,7 +74,8 @@ class Engine:
             # replay the prompt through decode steps to fill the cache
             for t in range(S):
                 nxt, caches = self._decode(self.params, cur[:, t:t + 1], caches, t)
-            next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32).cpu().numpy()
+            last = whole(last_position(logits))[:, 0, :]
+            next_tok = torch.argmax(last, dim=-1).to(torch.int32).cpu().numpy()
             for step in range(max(r.max_new for r in group)):
                 max_steps -= 1
                 for i, r in enumerate(group):

@@ -495,3 +495,44 @@ def test_fleet_plan_on_the_card_matches_the_cpu(cuda_device, monkeypatch):
     smoke.check_fleet_record(cpu, card, "plan", apps, fm.caps)
     assert card_flags == cpu_flags == [False, True]
     smoke.check_fleet_record(cpu_drift, card_drift, "drift", fm.apps, fm.caps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Skv,KV,G,hd,offset", [
+    (2, 256, 512, 1, 8, 256, 256),  # gemma-2b's second query block on a (2, 2) mesh
+    (2, 256, 512, 1, 8, 256, 0),
+    (1, 70, 200, 2, 2, 32, 100),  # a ragged block past the diagonal
+    (1, 128, 512, 2, 3, 64, 384),  # one head a tile, the last block
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_with_causal_offset_matches_plain(cuda_device, B, Sq, Skv, KV, G, hd,
+                                                       offset, dtype):
+    """The causal diagonal moved by ``offset`` (a sequence-sharded query
+    block's first row), in both routes, against the plain version."""
+    rng = np.random.default_rng(B * Sq + hd + offset)
+    q, k, v = (torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+               .to(cuda_device, dtype) for shape in
+               ((B, Sq, KV, G, hd), (B, Skv, KV, hd), (B, Skv, KV, hd)))
+    before = flash_kernel.launches
+    got = ops.flash_attention(q, k, v, causal=True, offset=offset)
+    assert flash_kernel.launches == before + 1
+    want = ref.flash_attention_plain(q, k, v, True, offset=offset)
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_the_card_fleet_rows_and_moe(cuda_device):
+    """Two ranks on the card over gloo: the fleet's plan on a (2,) "nodes"
+    mesh equals the single rank's, and the MoE block at moonshot-v1-16b-a3b's
+    width on a (1, 2) mesh equals its local mode (a2a and replicated,
+    dropless, atol 1e-5 / rtol 1e-4); chip_smoke.py phase 22 (a) and (b) at
+    two ranks."""
+    from repro_torch.launch.mesh import spawn
+
+    from torch_scripts import mesh_gpu_smoke
+
+    for rec in spawn(mesh_gpu_smoke, 2, device="cuda", timeout=600):
+        assert rec["rows_equal"]
+        assert rec["moe"] == {"a2a": "a2a", "replicated": "replicated"}

@@ -362,13 +362,27 @@ def test_crms_fleet_matches_reference_cold_then_incremental():
     assert_same(records[0], records[1], "crms_fleet")
 
 
+class _Mesh:
+    """What FleetPlanner reads of a mesh when it is built."""
+
+    def __init__(self, names, size):
+        self.mesh_dim_names, self._size = names, size
+
+    def size(self, i):
+        return self._size
+
+
 def test_mesh_raises():
+    """A mesh without a "nodes" axis, or whose axis is no power of two (the
+    row batch pads to one), raises; the plans on a mesh itself:
+    tests/test_torch_mesh_fleet.py."""
     apps, node_caps = make_fleet(2, 3, seed=0)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="no axis"):
         FleetPlanner(apps, node_caps, mesh=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="one device"):
+    with pytest.raises(ValueError, match="power"):
         allocate("crms_fleet", AllocRequest(apps=tuple(apps), caps=ServerCaps(*node_caps[0]),
-                                            extra={"node_caps": node_caps, "mesh": object()},
+                                            extra={"node_caps": node_caps,
+                                                   "mesh": _Mesh(("nodes",), 3)},
                                             **CPU))
     get_policy("crms_fleet").reset()
 

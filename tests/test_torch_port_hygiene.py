@@ -139,7 +139,8 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.core.des_vector, repro_torch.core.arrivals, repro_torch.core.failures, "
         "repro_torch.core.lifecycle, repro_torch.api.scenario, repro_torch.api.quasidynamic, "
         "repro_torch.core.baselines, repro_torch.core.placement, repro_torch.core.fleet, "
-        "repro_torch.serve.fleet; "
+        "repro_torch.serve.fleet, repro_torch.launch.mesh, repro_torch.launch.specs, "
+        "repro_torch.launch.traffic, repro_torch.sharding.rules; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -148,6 +149,41 @@ def test_importing_the_port_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+MESH_MODULES = ("launch/mesh.py", "launch/specs.py", "launch/traffic.py",
+                "sharding/rules.py", "sharding/__init__.py")
+
+
+def test_mesh_modules_are_in_the_import_check():
+    checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
+               if (ROOT / "src" / "repro_torch") in p.parents}
+    assert set(MESH_MODULES) <= checked
+
+
+def test_mesh_entry_points_default_to_cuda(monkeypatch):
+    """The meshes are CUDA meshes unless told otherwise and refuse a process
+    group with fewer ranks than they need; a runtime on a CUDA mesh raises
+    without a card (the same checks inside a group of ranks:
+    tests/test_torch_mesh.py)."""
+    import inspect
+
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.layers import Runtime
+
+    for fn in (M.make_production_mesh, M.make_smoke_mesh, M.make_mesh):
+        assert inspect.signature(fn).parameters["device_type"].default == "cuda"
+    with pytest.raises(RuntimeError, match="needs 4 ranks but only 0"):
+        M.make_smoke_mesh()
+    with pytest.raises(RuntimeError, match="needs 512 ranks"):
+        M.make_production_mesh(multi_pod=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    class CudaMesh:
+        device_type = "cuda"
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Runtime(mesh=CudaMesh())
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

@@ -162,6 +162,21 @@ def test_shared_packing_path_unchanged():
     assert torch.all(torch.isfinite(ws_r))
 
 
+class _Mesh:
+    """What ip_solve_rows reads of a mesh before its first collective."""
+
+    def __init__(self, names, size):
+        self.mesh_dim_names, self._size = names, size
+
+    def size(self, i):
+        return self._size
+
+
 def test_mesh_raises(stack):
-    with pytest.raises(NotImplementedError, match="one device"):
-        _port(stack, mesh=object())
+    """A mesh without the rows' axis, or whose axis does not divide the 4 rows,
+    raises before any collective (the row solve on a mesh itself:
+    tests/test_torch_mesh_fleet.py)."""
+    with pytest.raises(ValueError, match="no axis"):
+        _port(stack, mesh=_Mesh(("data",), 2))
+    with pytest.raises(ValueError, match="do not split"):
+        _port(stack, mesh=_Mesh(("nodes",), 3))
