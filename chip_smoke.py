@@ -281,12 +281,47 @@ is non-zero:
                parallel, one prefill of 4 x 512, 24 ssd launches a rank; (e)
                moonshot-v1-16b-a3b at full width cut to 4 layers, a prefill
                (a2a) and 8 decode steps at batch 2 (replicated) with the
-               single rank's routes. Each part's time, collectives
-               (CommDebugMode) and peak memory per rank; the offset kernel
-               timed at rank 1's shape (2, 256, 512, 1, 8, 256), offset 256;
-               the phase within 150 s. Rehearse it on the CPU at reduced
-               sizes: mesh_references("cpu", reduced=True), then
-               run_mesh(refs, golden, "cpu", reduced=True).
+               single rank's routes. Each part's time, collectives by kind
+               with their input bytes (c10d_calls) and peak memory per
+               rank; the offset kernel timed at rank 1's shape (2, 256, 512,
+               1, 8, 256), offset 256; the phase within 150 s. Rehearse it
+               on the CPU at reduced sizes: mesh_references("cpu",
+               reduced=True), then run_mesh(refs, golden, "cpu",
+               reduced=True).
+ 23. mesh-train — (last) the sharded train step on four ranks sharing the
+               card (gloo, a (2, 2) ("data", "model") mesh, the 2d layout):
+               (a) the five reduced entries of
+               tests/data/torch_train_golden.json trained for 6 steps in
+               float32 through the kernels, the MoE routes held (each rank
+               replays its rows' ids): loss rtol 1e-4, grad_norm rtol 1e-3,
+               and per rank the flash / ssd launches the steps imply (one per
+               attention / Mamba layer per microbatch, twice with the
+               recompute); (b) gemma-2b at full width cut to 4 of its 18
+               layers (MESH_TRAIN_LAYERS: gloo's latency differs between
+               hosts, and before a step held the weights it moves the phase
+               took 120-190 s at 4 layers and 143-152 s at 6; since, 52 s
+               at 4 in the script, 77-86 s alone on a slower host),
+               float32 weights and
+               AdamW, B 4 x S 256 in 2 microbatches: one float32-compute step
+               against a single-rank step on the card with the same seeded
+               weights and batch (loss rtol 1e-4, grad_norm rtol 1e-3, each
+               leaf's gradient by digests: its L2 norm and its dot with a
+               seeded normal tensor, summed over the shards, within 1e-3 of
+               the single rank's norm), then two bf16-compute steps on the
+               same batch with finite, falling losses; (c) mamba2-130m at
+               full width and depth, pure data parallel, B 8 x S 512: one
+               float32-compute step against the single rank's, 24 x 2 ssd
+               launches a rank; (d) compress_allreduce_pod on a (2, 2) ("pod",
+               "data") mesh, pods holding different gradients, bit for bit
+               with a NumPy transcription of the reference's formula over two
+               calls (the error state carried). Each rank holds the flash and
+               SSD kernels against their plain versions at every shape it
+               called them with. Each part's time, collectives by kind with
+               their input bytes (c10d_calls) and peak memory per rank; the
+               phase within 180 s. Rehearse it on the CPU at reduced sizes:
+               refs = mesh_train_references("cpu", reduced=True), then
+               run_mesh(refs | {"train_golden": golden}, None, "cpu",
+               parts=tuple(TRAIN_PARTS), reduced=True).
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
@@ -304,6 +339,18 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+PYCACHE = Path(__file__).resolve().parent / "build" / "pycache"
+if __name__ == "__main__":
+    # The script's own run keeps the bytecode it compiles under build/ and its
+    # spawned ranks read it there (PYTHONPYCACHEPREFIX): on a host that keeps
+    # no bytecode beside the sources, each rank of phases 22-23 would compile
+    # torch anew, at its start and again (about a thousand modules) at a
+    # train step's first DTensor and checkpoint calls.
+    import os
+
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = str(PYCACHE)
+    sys.dont_write_bytecode = False
 
 import numpy as np
 import torch
@@ -2939,26 +2986,57 @@ class Clock:
         return dt
 
 
+C10D_CALLS = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_to_all_single", "barrier")
+
+
+@contextlib.contextmanager
+def c10d_calls():
+    """Counts the c10d collectives issued inside (``torch.distributed``'s
+    functions, wrapped meanwhile; every collective of the port goes through
+    them): yields {name: [calls, input bytes]}. Unlike CommDebugMode, which
+    intercepts every tensor operation, it costs nothing per operation."""
+    import torch.distributed as dist
+
+    counts = {}
+    originals = {name: getattr(dist, name) for name in C10D_CALLS}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            t = args[1] if name in ("all_gather_into_tensor", "reduce_scatter_tensor",
+                                    "all_to_all_single") else (args[0] if args else None)
+            entry = counts.setdefault(name, [0, 0])
+            entry[0] += 1
+            entry[1] += t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
 @contextlib.contextmanager
 def mesh_part(record, name, device):
-    """Times one part on this rank, counts its collectives (CommDebugMode)
-    and its peak memory; adds {"s", "collectives", "peak_gb"} to
-    ``record[name]``."""
-    from torch.distributed.tensor.debug import CommDebugMode
-
+    """Times one part on this rank, counts its collectives (``c10d_calls``'
+    calls and bytes) and its peak memory; adds {"s", "collectives",
+    "peak_gb"} to ``record[name]``."""
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     out = record.setdefault(name, {})
     t0 = time.perf_counter()
-    with CommDebugMode() as comm:
+    with c10d_calls() as comm:
         yield out
     if cuda:
         torch.cuda.synchronize()
     out["s"] = time.perf_counter() - t0
-    out["collectives"] = {str(k).rsplit(".", 1)[-1]: int(v)
-                          for k, v in comm.get_comm_counts().items()}
+    out["collectives"] = {k: {"calls": n, "gb": b / 1e9} for k, (n, b) in comm.items()}
     if cuda:
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3007,12 +3085,13 @@ def check_kernel_calls(calls):
     return checks
 
 
-def mesh_checks(recs, kernel):
-    """The ranks' checks of ``kernel`` (``check_kernel_calls``), one entry a
-    (shape, offset) with the largest error over the ranks."""
+def mesh_checks(recs, kernel, parts=None):
+    """The ranks' checks of ``kernel`` (``check_kernel_calls``) in ``parts``
+    (default: phase 22's), one entry a (shape, offset) with the largest error
+    over the ranks."""
     worst = {}
     for rec in recs:
-        for part in MESH_PARTS:
+        for part in parts or MESH_PARTS:
             for c in rec.get(part, {}).get("kernel_checks", ()):
                 if c["kernel"] == kernel:
                     key = (c["shape"], c["offset"])
@@ -3237,10 +3316,13 @@ MESH_PARTS = {"fleet": part_fleet, "moe": part_moe, "gemma": part_gemma, "mamba"
 
 def mesh_rank(rank, world, refs, fleet_golden, device_type, parts=tuple(MESH_PARTS),
               reduced=False):
-    """Phase 22 on one rank (every rank runs it): ``parts`` of MESH_PARTS in
-    order, each timed with its collectives and peak memory counted. Returns
+    """Phase 22 (or 23) on one rank (every rank runs it): ``parts`` of
+    MESH_PARTS (TRAIN_PARTS) in order, each timed with its collectives and
+    peak memory counted, the serving parts under inference_mode. Returns
     this rank's numbers; any failed check raises."""
     t_enter = time.time()
+    if sys.pycache_prefix == str(PYCACHE):  # what this rank compiles, the next ranks read
+        sys.dont_write_bytecode = False
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.launch.mesh import make_mesh, make_smoke_mesh
 
@@ -3251,9 +3333,14 @@ def mesh_rank(rank, world, refs, fleet_golden, device_type, parts=tuple(MESH_PAR
            "nodes": make_mesh((world,), ("nodes",), device_type)}
     rec = {"rank": rank, "t_enter": t_enter, "setup_s": time.time() - t_enter}
     for name in parts:
+        train = name in TRAIN_PARTS
         with kernel_calls() as calls:
-            with mesh_part(rec, name, device_type) as out, torch.inference_mode():
-                MESH_PARTS[name](out, ctx)
+            with mesh_part(rec, name, device_type) as out, \
+                    (contextlib.nullcontext() if train else torch.inference_mode()):
+                (TRAIN_PARTS if train else MESH_PARTS)[name](out, ctx)
+        if rank == 0:  # progress, while the other parts run
+            print(f"[mesh-part] {name} s={out['s']:.2f} "
+                  f"peak_gb={out.get('peak_gb', 0):.2f}", flush=True)
         if torch.device(device_type).type == "cuda":  # the kernels at this rank's shapes
             out["kernel_checks"] = check_kernel_calls(calls)
         free_card_if(device_type)
@@ -3279,15 +3366,15 @@ def fleet_rows(planner):
 
 
 def run_mesh(refs, fleet_golden, device_type="cuda", world=MESH_WORLD,
-             parts=tuple(MESH_PARTS), reduced=False):
-    """Phase 22's ranks: ``world`` processes over gloo (every rank on card 0
-    with CUDA: NCCL refuses two ranks on one device), each running
+             parts=tuple(MESH_PARTS), reduced=False, limit_s=MESH_LIMIT_S):
+    """Phase 22's (or 23's) ranks: ``world`` processes over gloo (every rank
+    on card 0 with CUDA: NCCL refuses two ranks on one device), each running
     ``mesh_rank``; returns their records. A failure on any rank raises."""
     from repro_torch.launch.mesh import spawn
 
     return spawn(mesh_rank, world, backend="gloo", device=device_type,
                  args=(refs, fleet_golden, device_type, tuple(parts), reduced),
-                 timeout=MESH_LIMIT_S * 4)
+                 timeout=limit_s * 4)
 
 
 def mesh_phase(fleet_ref):
@@ -3340,6 +3427,393 @@ def mesh_phase(fleet_ref):
     return {"flash": {"launches": sum(flash), "launches_per_rank": flash,
                       "checked": checked["flash_attention"],
                       "offset_kernel": {key: off[key] for key in timed}},
+            "ssd": {"launches": sum(ssd_l), "launches_per_rank": ssd_l,
+                    "checked": checked["ssd_chunk"]}}
+
+
+# ----------------------------------------------------------------------------
+# 23. the sharded train step on the mesh
+# ----------------------------------------------------------------------------
+MESH_TRAIN_LIMIT_S = 180.0
+MESH_TRAIN_LAYERS = 4  # gemma-2b's depth in part (b) (full width; 18 uncut)
+MESH_TRAIN_GEMMA = (4, 256, 2)  # B, S, microbatches of part (b)
+MESH_TRAIN_MAMBA = (8, 512)  # B x S of part (c), one microbatch (two chunks of 256)
+DIGEST_TOL = 1e-3  # a leaf's gradient digests against the single rank's
+
+
+def mesh_train_config(arch, reduced=False):
+    """Phase 23's ``arch``: gemma-2b at full width cut to MESH_TRAIN_LAYERS
+    layers, mamba2-130m whole (or their reduced variants for a CPU
+    rehearsal)."""
+    from repro_torch.configs import get_config
+
+    if reduced:
+        return get_config(arch).reduced()
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, n_layers=MESH_TRAIN_LAYERS) if arch == FULL_ARCH else cfg
+
+
+def mesh_train_size(reduced=False):
+    """Parts (b) and (c)'s (B, S, microbatches) (a CPU rehearsal's are small)."""
+    if reduced:
+        return {"gemma": (4, 32, 2), "mamba": (8, 32, 1)}
+    return {"gemma": MESH_TRAIN_GEMMA, "mamba": (*MESH_TRAIN_MAMBA, 1)}
+
+
+def mesh_train_curve(cfg, setup, mesh, device, routes=None, attn_backend="auto"):
+    """``train_curve`` on ``mesh``: the same weights (``interop.numpy_params``)
+    laid out in the 2d layout (pure data parallel where the config says so),
+    the step on every rank with the same global batches, a MoE model on the
+    recorded routes (each rank replays its rows' ids). Returns [(loss,
+    grad_norm)] per step."""
+    from repro_torch import interop
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models import moe
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import make_train_step
+
+    lm = interop.params_from_jax(interop.numpy_params(cfg, setup["seed"]), cfg, device)
+    interop.place_params(lm, cfg, mesh, pure_dp=cfg.pure_dp)
+    opt = adamw(lr=setup["lr"])
+    state = opt.init(dict(lm.named_parameters()))
+    rt = make_runtime(cfg, mesh, torch.float32, attn_backend)
+    step_fn = make_train_step(cfg, rt, opt, setup["microbatches"])
+    curve = []
+    for step in range(setup["steps"]):
+        batch = {k: torch.as_tensor(v, device=rt.device)
+                 for k, v in train_batch(cfg, setup, step).items()}
+        with (moe.replaying_routes([torch.as_tensor(ids, device=rt.device)
+                                    for ids in routes[step]])
+              if routes else contextlib.nullcontext()):
+            lm, state, metrics = step_fn(lm, state, batch)
+        curve.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+    return curve
+
+
+def grad_digests(grads, seed=SEED):
+    """{name: (L2 norm, dot with a seeded standard normal tensor)} of a dict
+    of gradients in float64 sums; a ``DTensor`` leaf's from its local shard
+    (of the random tensor too), summed over the mesh dims that split it, so
+    that no whole gradient crosses processes."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for i, (name, g) in enumerate(sorted(grads.items())):
+        local = g.to_local() if isinstance(g, DTensor) else g
+        gen = torch.Generator(device=local.device).manual_seed(seed + i)
+        r = torch.randn(g.shape, generator=gen, device=local.device)
+        if isinstance(g, DTensor):
+            for d, pl in enumerate(g.placements):
+                if pl.is_shard():
+                    r = r.chunk(g.device_mesh.size(d), dim=pl.dim)[g.device_mesh.get_local_rank(d)]
+        g64 = local.double()
+        sums = torch.stack([(g64 * g64).sum(), (g64 * r.double()).sum()])
+        del r
+        if isinstance(g, DTensor):
+            for d, pl in enumerate(g.placements):
+                if pl.is_shard():
+                    dist.all_reduce(sums, group=g.device_mesh.get_group(d))
+        out[name] = (float(sums[0].sqrt()), float(sums[1]))
+    return out
+
+
+def digest_errs(got, want):
+    """The largest relative gaps of the leaves' digests: the norms relative
+    to the single rank's, the dots relative to its norm (a unit normal dot's
+    scale)."""
+    norm = max(abs(got[n][0] - w[0]) / max(w[0], 1e-30) for n, w in want.items())
+    dot = max(abs(got[n][1] - w[1]) / max(w[0], 1e-30) for n, w in want.items())
+    return norm, dot
+
+
+def recording_grads(opt, sink):
+    """``opt`` whose update first records the step's gradients' digests in
+    ``sink``."""
+    from repro_torch.train.optimizer import Optimizer
+
+    def update(grads, state, params):
+        sink.append(grad_digests(grads))
+        return opt.update(grads, state, params)
+
+    return Optimizer(init=opt.init, update=update, name=opt.name)
+
+
+def one_step(lm, cfg, rt, batch, mb):
+    """One AdamW step of ``lm``: (loss, grad_norm, gradient digests)."""
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import make_train_step
+
+    sink = []
+    opt = recording_grads(adamw(), sink)
+    state = opt.init(dict(lm.named_parameters()))
+    _, state, metrics = make_train_step(cfg, rt, opt, mb)(lm, state, batch)
+    return float(metrics["loss"]), float(metrics["grad_norm"]), sink[0], state
+
+
+def mesh_train_batch(cfg, B, S, device):
+    from repro_torch.data.pipeline import SyntheticTokens
+
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in SyntheticTokens(cfg.vocab, S, B, seed=SEED).batch(0).items()}
+
+
+def mesh_train_references(device="cuda", reduced=False):
+    """The single-rank steps (on ``device``, the same seeded float32 weights
+    and batch) that parts (b) and (c) are held to: loss, grad_norm and the
+    gradient digests of one float32-compute step."""
+    from repro_torch.models.layers import Runtime
+
+    refs, size = {}, mesh_train_size(reduced)
+    for part, arch in (("gemma", FULL_ARCH), ("mamba", SSM_ARCH)):
+        cfg = mesh_train_config(arch, reduced)
+        B, S, mb = size[part]
+        lm = full_model(cfg, device, torch.float32)
+        loss, gnorm, digests, _ = one_step(lm, cfg, Runtime(device, torch.float32, "auto"),
+                                           mesh_train_batch(cfg, B, S, device), mb)
+        refs[part] = {"loss": loss, "grad_norm": gnorm, "digests": digests}
+        del lm
+        free_card_if(device)
+    return refs
+
+
+def check_one_step(out, what, got, ref):
+    """A mesh step's (loss, grad_norm, digests) against the single rank's."""
+    loss, gnorm, digests = got
+    out["loss_rel_err"] = abs(loss - ref["loss"]) / abs(ref["loss"])
+    out["grad_norm_rel_err"] = abs(gnorm - ref["grad_norm"]) / abs(ref["grad_norm"])
+    out["digest_norm_rel_err"], out["digest_dot_rel_err"] = digest_errs(digests, ref["digests"])
+    if not (np.isfinite(loss) and out["loss_rel_err"] < 1e-4
+            and out["grad_norm_rel_err"] < 1e-3
+            and max(out["digest_norm_rel_err"], out["digest_dot_rel_err"]) < DIGEST_TOL):
+        raise AssertionError(f"mesh-train {what}: the step is off the single rank's: {out}")
+
+
+def part_train_golden(out, ctx):
+    """(a) the golden file's reduced entries trained on the (2, 2) mesh in
+    float32 through the kernels, a MoE model on the reference's routes:
+    loss rtol 1e-4, grad_norm rtol 1e-3 (phase 14's bars), and the kernel
+    launches the steps imply on each rank. Keeps each entry's curve."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd
+
+    golden = ctx["refs"]["train_golden"]
+    setup = golden["setup"]
+    cuda = torch.device(ctx["device"]).type == "cuda"
+    out["launches"] = [0, 0]
+    for name, entry in golden["entries"].items():
+        cfg = get_config(entry["arch"]).reduced()
+        before = flash_attention.launches, ssd.launches
+        curve = mesh_train_curve(cfg, setup, ctx["mesh"], ctx["device"], entry.get("routes"))
+        launches = flash_attention.launches - before[0], ssd.launches - before[1]
+        want = tuple(n * setup["steps"] for n in train_launches(
+            cfg, setup["microbatches"], frames=cfg.family == "audio"))
+        if cuda and launches != want:
+            raise AssertionError(f"mesh-train {name}: (flash, ssd) launches {launches} != {want}")
+        out["launches"] = [a + b for a, b in zip(out["launches"], launches)]
+        loss, gnorm = (np.array(c) for c in zip(*curve))
+        loss_err = float((np.abs(loss - entry["loss"]) / np.abs(entry["loss"])).max())
+        gnorm_err = float((np.abs(gnorm - entry["grad_norm"]) / np.abs(entry["grad_norm"])).max())
+        out[name] = {"loss_max_rel_err": loss_err, "grad_norm_max_rel_err": gnorm_err,
+                     "curve": curve}
+        if not (np.all(np.isfinite(loss)) and loss_err < 1e-4 and gnorm_err < 1e-3):
+            raise AssertionError(f"mesh-train {name}: losses {loss.tolist()} / grad norms "
+                                 f"{gnorm.tolist()} off the reference's")
+
+
+def part_train_gemma(out, ctx):
+    """(b) gemma-2b at full width (depth cut) in the 2d layout, float32
+    weights, AdamW: one float32-compute step against the single rank's, then
+    two bf16-compute steps on the same batch with losses finite and
+    falling."""
+    from repro_torch import interop
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = mesh_train_config(FULL_ARCH, ctx["reduced"])
+    B, S, mb = mesh_train_size(ctx["reduced"])["gemma"]
+    device, mesh = ctx["device"], ctx["mesh"]
+    clock = Clock(device)
+    lm = interop.place_params(full_model(cfg, device, torch.float32), cfg, mesh)
+    out["init_s"] = clock()
+    batch = mesh_train_batch(cfg, B, S, device)
+    flash_attention.launches = 0
+    loss, gnorm, digests, _ = one_step(lm, cfg, make_runtime(cfg, mesh, torch.float32), batch, mb)
+    out["f32_step_s"] = clock()
+    out["flash_launches_f32_step"] = flash_attention.launches
+    check_one_step(out, "gemma", (loss, gnorm, digests), ctx["refs"]["gemma"])
+    opt = adamw()
+    state = opt.init(dict(lm.named_parameters()))
+    step_fn = make_train_step(cfg, make_runtime(cfg, mesh, torch.bfloat16), opt, mb)
+    losses, step_s = [], []
+    for _ in range(2):
+        clock()
+        lm, state, metrics = step_fn(lm, state, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(clock())
+    out.update(bf16_losses=losses, bf16_step_s=step_s, flash_launches=flash_attention.launches)
+    if not (np.all(np.isfinite(losses)) and losses[1] < losses[0]):
+        raise AssertionError(f"mesh-train gemma: bf16 losses {losses}")
+    want = 3 * 2 * mb * cfg.n_layers
+    if torch.device(device).type == "cuda" and flash_attention.launches != want:
+        raise AssertionError(f"mesh-train gemma: {flash_attention.launches} flash launches on "
+                             f"a rank, {want} expected")
+
+
+def part_train_mamba(out, ctx):
+    """(c) mamba2-130m at full width and depth, pure data parallel: one
+    float32-compute step against the single rank's."""
+    from repro_torch import interop
+    from repro_torch.kernels import ssd
+    from repro_torch.launch.specs import make_runtime
+
+    cfg = mesh_train_config(SSM_ARCH, ctx["reduced"])
+    B, S, mb = mesh_train_size(ctx["reduced"])["mamba"]
+    device, mesh = ctx["device"], ctx["mesh"]
+    clock = Clock(device)
+    lm = interop.place_params(full_model(cfg, device, torch.float32), cfg, mesh, pure_dp=True)
+    ssd.launches = 0
+    loss, gnorm, digests, _ = one_step(lm, cfg, make_runtime(cfg, mesh, torch.float32),
+                                       mesh_train_batch(cfg, B, S, device), mb)
+    out["step_s"] = clock()
+    out["ssd_launches"] = ssd.launches
+    check_one_step(out, "mamba", (loss, gnorm, digests), ctx["refs"]["mamba"])
+    want = 2 * mb * cfg.n_layers
+    if torch.device(device).type == "cuda" and ssd.launches != want:
+        raise AssertionError(f"mesh-train mamba: {ssd.launches} ssd launches on a rank, "
+                             f"{want} expected")
+
+
+def pod_grads(pod, call):
+    """Part (d)'s gradients of pod ``pod`` at call ``call``: "w" (64,) and "m"
+    (16, 24) float32 from default_rng([SEED, pod, call])."""
+    rng = np.random.default_rng([SEED, pod, call])
+    return {"w": rng.normal(size=(64,)).astype(np.float32),
+            "m": (3.0 * rng.normal(size=(16, 24))).astype(np.float32)}
+
+
+def compress_numpy(pods, errors):
+    """The reference's compress_allreduce_pod transcribed in NumPy float32 for
+    pods that hold different gradients: ``pods`` [{leaf: g}] per pod, the
+    pods' error states likewise. Returns (the reduced leaves, the pods' new
+    errors)."""
+    f32 = np.float32
+    n = len(pods)
+    red, new_err = {}, [{} for _ in pods]
+    for leaf in pods[0]:
+        qs, scales = [], []
+        for p, (g, err) in enumerate(zip(pods, errors)):
+            g32 = g[leaf].astype(f32) + err[leaf]
+            scale = np.maximum(np.max(np.abs(g32)), f32(1e-12)) / f32(127.0)
+            q = np.clip(np.round(g32 / scale), -127, 127).astype(np.int8)
+            new_err[p][leaf] = g32 - q.astype(f32) * scale
+            qs.append(q.astype(np.int32))
+            scales.append(scale)
+        qsum, ssum = sum(qs), f32(sum(scales))
+        red[leaf] = qsum.astype(f32) * (ssum / f32(n)) / f32(n)
+    return red, new_err
+
+
+def run_compress(mesh, device, calls=2):
+    """compress_allreduce_pod on ``mesh`` (("pod", "data")): each pod its own
+    gradients (pod_grads), "m" a DTensor split over 'data', "w" a plain
+    tensor; the error state carried over ``calls`` calls. Returns per call
+    (the reduced leaves whole, this pod's new error whole) as NumPy."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.layers import distribute, whole
+    from repro_torch.train.step import compress_allreduce_pod
+
+    pod = mesh.get_local_rank("pod")
+    err = None
+    out = []
+    for call in range(calls):
+        g = {k: torch.as_tensor(v, device=device) for k, v in pod_grads(pod, call).items()}
+        g["m"] = distribute(g["m"], mesh, (Replicate(), Shard(0)))
+        if err is None:
+            err = {"w": torch.zeros_like(g["w"]), "m": distribute(
+                torch.zeros(g["m"].shape, device=device), mesh, g["m"].placements)}
+        red, err = compress_allreduce_pod(g, mesh, err)
+        out.append(tuple({k: whole(v).cpu().numpy() for k, v in t.items()} for t in (red, err)))
+    return out
+
+
+def check_compress(records, pods=2, calls=2):
+    """``run_compress``'s records on a rank against ``compress_numpy`` bit for
+    bit; returns the largest difference (0)."""
+    errors = [{"w": np.zeros(64, np.float32), "m": np.zeros((16, 24), np.float32)}
+              for _ in range(pods)]
+    worst = 0.0
+    for call, (red, err) in enumerate(records):
+        want, errors = compress_numpy([pod_grads(p, call) for p in range(pods)], errors)
+        for k in want:
+            worst = max(worst, float(np.abs(red[k] - want[k]).max()))
+            if not np.array_equal(red[k], want[k]):
+                raise AssertionError(f"compress_allreduce_pod call {call}, {k}: off the "
+                                     "NumPy transcription")
+    return worst, errors
+
+
+def part_train_pod(out, ctx):
+    """(d) compress_allreduce_pod on a (2, 2) ("pod", "data") mesh against the
+    NumPy transcription of the reference's formula, bit for bit, its error
+    carried over two calls."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("pod", "data"), ctx["device"])
+    records = run_compress(mesh, ctx["device"])
+    worst, errors = check_compress(records)
+    pod = mesh.get_local_rank("pod")
+    if not all(np.array_equal(records[-1][1][k], errors[pod][k]) for k in errors[pod]):
+        raise AssertionError("compress_allreduce_pod: the error state is off the transcription's")
+    out["max_abs_diff"] = worst
+
+
+TRAIN_PARTS = {"train_golden": part_train_golden, "train_gemma": part_train_gemma,
+               "train_mamba": part_train_mamba, "train_pod": part_train_pod}
+
+
+def mesh_train_phase(train_golden):
+    """Phase 23: the sharded train step on four ranks sharing the card, against
+    the golden file and single-rank steps on the card; returns the kernels
+    line's entries."""
+    sys.path.insert(0, str(ROOT / "src"))
+    t_phase = time.perf_counter()
+    free_card()
+    refs = mesh_train_references()
+    refs["train_golden"] = train_golden
+    refs_s = time.perf_counter() - t_phase
+    t0, t_spawn = time.perf_counter(), time.time()
+    recs = run_mesh(refs, None, parts=tuple(TRAIN_PARTS), limit_s=MESH_TRAIN_LIMIT_S)
+    ranks_s = time.perf_counter() - t0
+    startup_s = min(r.pop("t_enter") for r in recs) - t_spawn
+    teardown_s = t_spawn + ranks_s - max(r.pop("t_exit") for r in recs)
+    wall = time.perf_counter() - t_phase
+    for rec in recs:
+        log("mesh-train", **rec)
+    flash = [r["train_golden"]["launches"][0] + r["train_gemma"]["flash_launches"] for r in recs]
+    ssd_l = [r["train_golden"]["launches"][1] + r["train_mamba"]["ssd_launches"] for r in recs]
+    checked = {k: mesh_checks(recs, k, TRAIN_PARTS) for k in ("flash_attention", "ssd_chunk")}
+    log("mesh-train", ranks=len(recs), references_s=refs_s, ranks_s=ranks_s,
+        ranks_startup_s=startup_s, ranks_setup_s=max(r["setup_s"] for r in recs),
+        ranks_teardown_s=teardown_s,
+        parts_s={name: max(r[name]["s"] for r in recs) for name in TRAIN_PARTS},
+        flash_launches_per_rank=flash, ssd_launches_per_rank=ssd_l,
+        peak_gb_per_rank=[max(r[p].get("peak_gb", 0) for p in TRAIN_PARTS) for r in recs],
+        kernels_checked_at_the_ranks_shapes=checked, phase_wall_s=wall)
+    if min(flash) == 0 or min(ssd_l) == 0:
+        raise AssertionError(f"mesh-train: a rank launched no flash {flash} or ssd {ssd_l} kernel")
+    for rec in recs:
+        for part in ("train_golden", "train_gemma", "train_mamba"):
+            if not rec[part].get("kernel_checks"):
+                raise AssertionError(f"mesh-train {part}: rank {rec['rank']} checked no kernel "
+                                     "at its shapes")
+    if wall > MESH_TRAIN_LIMIT_S:
+        raise AssertionError(f"mesh-train: the phase took {wall:.1f} s > {MESH_TRAIN_LIMIT_S} s")
+    return {"flash": {"launches": sum(flash), "launches_per_rank": flash,
+                      "checked": checked["flash_attention"]},
             "ssd": {"launches": sum(ssd_l), "launches_per_rank": ssd_l,
                     "checked": checked["ssd_chunk"]}}
 
@@ -3520,6 +3994,10 @@ def main() -> int:
     # 22. the mesh: four ranks on the card over gloo against single-rank runs
     mesh = mesh_phase(baselines["fleet_rows"])
 
+    # 23. the sharded train step: four ranks on the card over gloo against the
+    # golden file and single-rank steps
+    mesh_train = mesh_train_phase(train_golden)
+
     print(smi, flush=True)
     timed_keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms",
                   "bound_ms", "bound_by", "library_ms", "library_graph_ms")
@@ -3552,7 +4030,7 @@ def main() -> int:
         "seamless": {"launches": audio_launches,
                      **{name: {key: res[key] for key in timed_keys}
                         for name, res in audio_flash.items()}},
-        "mesh": mesh["flash"],
+        "mesh": mesh["flash"], "mesh_train": mesh_train["flash"],
         "training": {"launches": gemma_train["launches"][0],
                      "launches_per_step": gemma_train["launches_per_step"][0],
                      "grad_max_abs_err": max(r["max_abs_err"] for r in flash_grads),
@@ -3564,7 +4042,7 @@ def main() -> int:
         "launches": ssd_launches, "max_abs_err": ssd_path["max_abs_err"],
         "ms": ssd_path["ms"], "graph_ms": ssd_path["graph_ms"], "plain_ms": ssd_path["plain_ms"],
         "bound_ms": ssd_path["bound_ms"], "bound_by": ssd_path["bound_by"],
-        "library_ms": None, "mesh": mesh["ssd"],
+        "library_ms": None, "mesh": mesh["ssd"], "mesh_train": mesh_train["ssd"],
         "training": {"launches": mamba_train["launches"][1],
                      "launches_per_step": mamba_train["launches_per_step"][1],
                      "fwd_device_ms_per_step": mamba_train["ssd_fwd_device_ms"],

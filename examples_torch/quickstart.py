@@ -15,7 +15,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.api import AllocRequest, SolverOptions, allocate, list_policies
+from repro_torch.api import AllocRequest, SolverOptions, allocate, get_policy, list_policies
 from repro_torch.core.problem import ServerCaps
 from repro_torch.core.profiler import make_paper_apps
 
@@ -24,6 +24,10 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default=None, help="torch device (default: the CUDA device)")
     device = ap.parse_args(argv).device
+    # the stateful policies start as in a new process, also when main runs
+    # again in one (their state is the last deployment they saw)
+    for name in ("crms_lifecycle", "crms_failover"):
+        get_policy(name).reset()
 
     # 1. profile + fit (make_paper_apps(fitted=True) runs the §III measurement
     #    pipeline: noisy latency sweeps -> nonlinear least squares on Eq. (1))

@@ -179,12 +179,18 @@ def params_to_jax(lm, cfg, values=None) -> dict:
     ``params_from_jax``, so that updated parameters can be compared with the
     reference's leaf by leaf. ``values``, a dict keyed by parameter name
     (``lm.named_parameters()``; an optimizer's moments, say), is laid out in
-    their place."""
+    their place. A ``DTensor`` (a model on a mesh) is gathered whole (a
+    collective: every rank calls this)."""
+    from repro_torch.models.layers import _is_dtensor, whole
+
     tree: dict = {}
     stacks: dict = {}
     names = {id(p): name for name, p in lm.named_parameters()}
     for param, path, repeats, r in _leaf_places(lm, cfg):
         value = param if values is None else values[names[id(param)]]
+        if _is_dtensor(value):
+            with torch.no_grad():
+                value = whole(value)
         arr = value.detach().to("cpu", torch.float32).numpy()
         if repeats is not None:
             stack = stacks.setdefault(path, np.zeros((repeats, *arr.shape), np.float32))

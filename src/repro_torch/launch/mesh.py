@@ -74,7 +74,7 @@ def mesh_shape(mesh) -> dict:
         return {}
     if isinstance(mesh, dict):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
 # ----------------------------------------------------------------------------

@@ -13,7 +13,9 @@ and ``dt_bias`` stay float32 whatever the model's dtype. On a mesh each rank
 runs the whole mixer on its batch rows with the weights gathered (the
 reference splits the heads over the model axis, ``repro/models/mamba.py:162``;
 mamba2-130m, its one Mamba model that fits a card, is pure data parallel and
-has no model axis).
+has no model axis). The gathered weights' gradients are summed over the
+data axes (with pure data parallelism: 'data' and 'model') and come back
+in their storage layout (``layers.local_weight``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from torch import nn
 
 from repro_torch.configs.base import MambaSpec, ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Runtime, _param, local_weight
+from repro_torch.models.layers import Runtime, _param, local_weights
 
 F32 = torch.float32
 
@@ -82,8 +84,10 @@ def apply_mamba(p: Mamba, x, cfg: ModelConfig, runtime: Runtime, *, cache=None,
     dt_c = runtime.compute_dtype
     B, S, _ = x.shape
     if runtime.mesh is not None:  # every rank runs the whole mixer on its batch rows
-        p = types.SimpleNamespace(**{name: local_weight(w, runtime)
-                                     for name, w in p.named_parameters()})
+        cast = ("w_in", "conv_w", "conv_b", "w_out")  # cast to the compute dtype before a gather
+        named = list(p.named_parameters())
+        p = types.SimpleNamespace(**dict(zip((name for name, _ in named), local_weights(
+            [(w, None, dt_c if name in cast else None, False) for name, w in named], runtime))))
 
     zxbcdt = x @ p.w_in.to(dt_c)
     z, xin, bmat, cmat, dt_raw = torch.split(zxbcdt, [d_in, d_in, N, N, nh], dim=-1)

@@ -24,7 +24,10 @@ memory and time differ).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -156,7 +159,7 @@ def _apply_block(block: Block, x, cfg: ModelConfig, runtime: Runtime, *, positio
     """Returns (x + the block's output, its aux loss or None, its new cache
     or None). On a mesh ``x`` holds this rank's rows of a batch of
     ``batch``."""
-    h = L.apply_norm(block.norm, x, cfg)
+    h = L.apply_norm(block.norm, x, cfg, runtime=runtime)
     aux = new_cache = None
     if block.kind == "self_attn":
         y, new_cache = L.apply_attention(block.attn, h, cfg, runtime, positions=positions,
@@ -224,28 +227,34 @@ def _embed(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens):
     if runtime.mesh is None:
         x = torch.nn.functional.embedding(tokens, lm.embed).to(dt)
     else:
-        x = _embed_mesh(lm.embed, runtime, tokens).to(dt)
+        x = _embed_mesh(lm.embed, runtime, tokens)
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=dt, device=x.device)
     return x
 
 
 def _embed_mesh(embed, runtime: Runtime, tokens):
-    """The embedding lookup on a mesh, from the table's storage shards: with
-    the vocabulary split over the model axis each rank looks up the tokens in
-    its rows and the (one-hot) results are summed; with d split, the rows'
-    blocks are gathered."""
+    """The embedding lookup on a mesh in the compute dtype, from the table's
+    storage shards: with the vocabulary split over the model axis each rank
+    looks up the tokens in its rows and the (one-hot) results are summed;
+    with d split, the rows' blocks are gathered; with the rows split over a
+    batch axis, the tokens move instead of the table (``layers.row_lookup``).
+    The table's gradient scatters into the rank's rows (its block of d)."""
     c = L.model_shard_dim(embed, runtime)
+    dt = runtime.compute_dtype
+    if L.row_lookup_dim(embed, runtime) is not None:  # the rows split over a batch axis
+        x = L.row_lookup(embed, tokens, runtime, dt)
+        return L.model_all_gather(x, runtime, dim=-1) if c == 1 else x
     if c == 0:
-        table = L.local_weight(embed, runtime, 0)
+        table = L.local_weight(embed, runtime, 0, dt)
         idx = tokens - L.model_rank(runtime) * table.shape[0]
         inside = (idx >= 0) & (idx < table.shape[0])
         x = torch.nn.functional.embedding(torch.where(inside, idx, 0), table)
         return L.model_all_reduce(torch.where(inside[..., None], x, 0), runtime)
     if c == 1:
-        x = torch.nn.functional.embedding(tokens, L.local_weight(embed, runtime, 1))
+        x = torch.nn.functional.embedding(tokens, L.local_weight(embed, runtime, 1, dt))
         return L.model_all_gather(x, runtime, dim=-1)
-    return torch.nn.functional.embedding(tokens, L.local_weight(embed, runtime))
+    return torch.nn.functional.embedding(tokens, L.local_weight(embed, runtime, dtype=dt))
 
 
 def _head(lm: LM, cfg: ModelConfig, runtime: Runtime, x, batch=None):
@@ -253,7 +262,7 @@ def _head(lm: LM, cfg: ModelConfig, runtime: Runtime, x, batch=None):
     rank's rows of a batch of ``batch``, and the logits come back as a
     ``DTensor`` laid out as the reference constrains them: batch over the
     data axes, the vocabulary over the model axis (where it divides)."""
-    x = L.apply_norm(lm.final_norm, x, cfg)
+    x = L.apply_norm(lm.final_norm, x, cfg, runtime=runtime)
     dt = runtime.compute_dtype
     if runtime.mesh is not None:
         n = runtime.model_axis_size
@@ -297,8 +306,34 @@ def _encode_memory(lm: LM, cfg: ModelConfig, runtime: Runtime, extra_inputs, row
         batch = None if rows is None else len(extra_inputs["frames"])
         x, _ = _apply_layers(lm.encoder, x, torch.zeros((), dtype=F32, device=dev), cfg,
                              runtime, pos, batch=batch)
-        return L.apply_norm(lm.enc_norm, x, cfg)
+        return L.apply_norm(lm.enc_norm, x, cfg, runtime=runtime)
     return None
+
+
+def _batch_runtime(runtime: Runtime, batch: int) -> Runtime:
+    """``runtime`` with its data axes cut to those that split a batch of
+    ``batch`` rows (``layers.batch_axes``): the ranks of the others hold the
+    same rows, so a weight's gradient is summed over the splitting axes only
+    (``layers.local_weight``). The forward is the same either way."""
+    if runtime.mesh is None:
+        return runtime
+    axes = tuple(L.batch_axes(runtime, batch))
+    if axes == tuple(runtime.data_axes):
+        return runtime
+    return dataclasses.replace(runtime, data_axes=axes)
+
+
+def _trunk(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs):
+    """The embedding and the layers: (the last layer's output (this rank's
+    rows on a mesh), the summed aux, the global batch size)."""
+    B, S = tokens.shape
+    rows = None if runtime.mesh is None else L.batch_rows(runtime, B)
+    x = _embed(lm, cfg, runtime, tokens if rows is None else tokens[rows])
+    positions = torch.arange(S, device=x.device)[None, :]
+    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {}, rows)
+    x, aux_total = _apply_layers(lm.layers, x, torch.zeros((), dtype=F32, device=x.device),
+                                 cfg, runtime, positions, memory, B)
+    return x, aux_total, B
 
 
 def apply_lm(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs=None):
@@ -307,13 +342,8 @@ def apply_lm(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, extra_inputs=No
     MoE). On a mesh every rank passes the same (global) inputs, computes its
     batch rows, and gets the logits as a ``DTensor`` (``_head``)."""
     tokens = _tokens(tokens, runtime)
-    B, S = tokens.shape
-    rows = None if runtime.mesh is None else L.batch_rows(runtime, B)
-    x = _embed(lm, cfg, runtime, tokens if rows is None else tokens[rows])
-    positions = torch.arange(S, device=x.device)[None, :]
-    memory = _encode_memory(lm, cfg, runtime, extra_inputs or {}, rows)
-    x, aux_total = _apply_layers(lm.layers, x, torch.zeros((), dtype=F32, device=x.device),
-                                 cfg, runtime, positions, memory, B)
+    runtime = _batch_runtime(runtime, tokens.shape[0])
+    x, aux_total, B = _trunk(lm, cfg, runtime, tokens, extra_inputs)
     return _head(lm, cfg, runtime, x, B), aux_total
 
 
@@ -403,10 +433,6 @@ def init_cache(cfg: ModelConfig, runtime: Runtime, batch: int, max_len: int,
     return caches
 
 
-def _local(t):
-    return t.to_local() if L._is_dtensor(t) else t
-
-
 def _layer_cache(blk, kind: str, r: int, runtime: Runtime, index: int):
     """Repeat ``r`` of a block's cache as ``apply_attention`` / ``apply_mamba``
     take it, and a function that writes a Mamba state back where it was
@@ -414,8 +440,8 @@ def _layer_cache(blk, kind: str, r: int, runtime: Runtime, index: int):
     position and the split of T); a Mamba state split over 'model' is
     gathered whole (the mixer runs whole on every rank)."""
     if kind == "self_attn":
-        k = _local(blk["k"])[r]
-        cache = {"k": k, "v": _local(blk["v"])[r], "index": index}
+        k = L.local_shard(blk["k"])[r]
+        cache = {"k": k, "v": L.local_shard(blk["v"])[r], "index": index}
         if L._is_dtensor(blk["k"]):
             split = L.model_shard_dim(blk["k"], runtime) == 3
             cache["t_shards"] = runtime.model_axis_size if split else 1
@@ -423,7 +449,7 @@ def _layer_cache(blk, kind: str, r: int, runtime: Runtime, index: int):
         return cache, None
     cache, parts = {}, []
     for name in ("conv", "ssm"):
-        local = _local(blk[name])[r]
+        local = L.local_shard(blk[name])[r]
         dim = L.model_shard_dim(blk[name], runtime) if L._is_dtensor(blk[name]) else None
         if dim is None:
             cache[name] = local
@@ -469,7 +495,7 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
     for st in caches.values():
         for blk in (st or {}).values():
             if "index" in blk:  # attention caches only; a Mamba cache has no index
-                _local(blk["index"]).fill_(index)
+                L.local_shard(blk["index"]).fill_(index)
     return _head(lm, cfg, runtime, x, B), caches
 
 
@@ -480,12 +506,45 @@ def lm_loss(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, labels, extra_in
             aux_coeff: float = 0.01):
     """Mean next-token negative log-likelihood of ``labels`` (B, S) under the
     float32 logits (logsumexp minus the gold logit), plus ``aux_coeff`` times
-    the MoE aux. Returns (loss, {"nll", "aux"})."""
-    logits, aux = apply_lm(lm, cfg, runtime, tokens, extra_inputs)
-    logits = L.whole(logits)  # on a mesh: every rank takes the whole loss
-    logits = logits.to(F32)
-    lse = torch.logsumexp(logits, dim=-1)
-    labels = torch.as_tensor(labels, device=logits.device).long()
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = torch.mean(lse - gold)
+    the MoE aux. Returns (loss, {"nll", "aux"}). On a mesh every rank passes
+    the global inputs and gets the whole loss: the cross-entropy of its rows
+    over the vocabulary split on the model axis (``_vocab_parallel_nll``),
+    then the mean over the batch shards; no rank holds the whole logits."""
+    tokens = _tokens(tokens, runtime)
+    B = tokens.shape[0]
+    runtime = _batch_runtime(runtime, B)
+    x, aux, _ = _trunk(lm, cfg, runtime, tokens, extra_inputs)
+    labels = torch.as_tensor(labels, device=runtime.device).long()[L.batch_rows(runtime, B)]
+    nll = L.batch_mean(_vocab_parallel_nll(lm, cfg, runtime, x, labels), runtime, B)
     return nll + aux_coeff * aux, {"nll": nll, "aux": aux}
+
+
+def _vocab_parallel_nll(lm: LM, cfg: ModelConfig, runtime: Runtime, x, labels):
+    """The mean negative log-likelihood of this rank's rows ``x`` (the last
+    layer's output; all rows off a mesh) with their ``labels``. Where the
+    vocabulary splits over the model axis, each rank projects onto its block
+    of the head: the row maxima and the sums of exp are reduced over the axis
+    (the maxima as constants), and the gold logit comes from the rank whose
+    block holds the label."""
+    x = L.apply_norm(lm.final_norm, x, cfg, runtime=runtime)
+    dt, n = runtime.compute_dtype, runtime.model_axis_size
+    split = n > 1 and cfg.vocab % n == 0
+    if split:
+        x = L.enter_split(x, runtime)
+    if cfg.tie_embeddings:
+        logits = x @ L.local_weight(lm.embed, runtime, 0 if split else None, dt).T
+    else:
+        logits = x @ L.local_weight(lm.lm_head, runtime, 1 if split else None, dt)
+    logits = logits.to(F32)
+    if not split:
+        lse = torch.logsumexp(logits, dim=-1)
+        return torch.mean(lse - torch.gather(logits, -1, labels[..., None])[..., 0])
+    m = L.model_all_reduce(logits.detach().amax(dim=-1), runtime, dist.ReduceOp.MAX)
+    lse = m + torch.log(L.model_all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1),
+                                           runtime))
+    v_loc = logits.shape[-1]
+    idx = labels - L.model_rank(runtime) * v_loc
+    inside = (idx >= 0) & (idx < v_loc)
+    gold = torch.gather(logits, -1, torch.where(inside, idx, 0)[..., None])[..., 0]
+    gold = L.model_all_reduce(torch.where(inside, gold, 0.0), runtime)
+    return torch.mean(lse - gold)

@@ -36,12 +36,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-import torch.distributed as dist
-
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.layers import (Runtime, _param, batch_axes, batch_mean,
-                                       batch_rows, local_weight, matmul, model_all_gather,
-                                       model_all_reduce, model_rank)
+                                       batch_rows, enter_split, local_weights, matmul,
+                                       model_all_gather, model_all_reduce, model_all_to_all,
+                                       model_rank)
 
 F32 = torch.float32
 _ROUTE_SINKS: list[list] = []  # lists collecting expert ids, see recording_routes
@@ -175,15 +174,6 @@ def _combine(ye, ids, slot, keep, pk, dt):
     return y
 
 
-def _model_all_to_all(t, runtime: Runtime):
-    """Tiled all-to-all over the model axis: block i of ``t``'s dim 0 goes to
-    model rank i, and block i of the result came from model rank i."""
-    w = t.contiguous()
-    out = torch.empty_like(w)
-    dist.all_to_all_single(out, w, group=runtime.mesh.get_group(runtime.model_axis))
-    return out
-
-
 def moe_mode(cfg: ModelConfig, runtime: Runtime, batch: int, seq: int) -> str:
     """The reference's choice: ``local`` without a model axis, ``a2a`` where
     the tokens of a data shard divide the model axis, else
@@ -200,7 +190,9 @@ def moe_mode(cfg: ModelConfig, runtime: Runtime, batch: int, seq: int) -> str:
 def _moe_mesh(p: MoE, x, ids, pk, cfg: ModelConfig, runtime: Runtime, cf: float, batch: int):
     """The ``a2a`` / ``replicated`` dispatch of ``x`` (this rank's rows of a
     batch of ``batch``, whole over the model axis) with its routes; returns
-    y in ``x``'s layout."""
+    y in ``x``'s layout. ``x`` and the routing weights ``pk`` enter the
+    ranks' split work through ``enter_split``, and each exchange has its
+    inverse as its backward."""
     m = cfg.moe
     E, k = m.n_experts, m.top_k
     B, S, d = x.shape
@@ -216,7 +208,9 @@ def _moe_mesh(p: MoE, x, ids, pk, cfg: ModelConfig, runtime: Runtime, cf: float,
             f"moe: a batch of {batch} split over only {rows} of the data axes "
             f"{runtime.data_axes}; the reference's shard_map takes all of them or none")
     E_loc = E // n
-    w_gate, w_up, w_down = (local_weight(w, runtime, 0) for w in (p.w_gate, p.w_up, p.w_down))
+    w_gate, w_up, w_down = local_weights([(w, 0, dt, False)
+                                          for w in (p.w_gate, p.w_up, p.w_down)], runtime)
+    x, pk = enter_split(x, runtime), enter_split(pk, runtime)
     x2, ids2, pk2 = x.reshape(-1, d), ids.reshape(-1, k), pk.reshape(-1, k)
     tb = x2.shape[0]
 
@@ -233,11 +227,11 @@ def _moe_mesh(p: MoE, x, ids, pk, cfg: ModelConfig, runtime: Runtime, cf: float,
         slot = torch.where(keep, pos, 0)
         buf = _scatter(x_my, ids_my, slot, keep, E, C_loc)
         # exchange: (E = n·E_loc, C_loc, d) -> (E_loc, n·C_loc, d), sources in rank order
-        recv = _model_all_to_all(buf, runtime).reshape(n, E_loc, C_loc, d)
+        recv = model_all_to_all(buf, runtime).reshape(n, E_loc, C_loc, d)
         recv = recv.transpose(0, 1).reshape(E_loc, n * C_loc, d)
         ye = _expert_ffn(recv, w_gate, w_up, w_down, cfg.act, dt)
         back = ye.reshape(E_loc, n, C_loc, d).transpose(0, 1).contiguous()
-        back = _model_all_to_all(back, runtime).reshape(E, C_loc, d)
+        back = model_all_to_all(back, runtime).reshape(E, C_loc, d)
         y_my = _combine(back, ids_my, slot, keep, pk_my, dt)
         return model_all_gather(y_my, runtime, 0).reshape(B, S, d)
 

@@ -13,6 +13,12 @@ leaves to host memory at once and writes them on a thread, so the train loop
 only blocks on the previous snapshot (one-deep pipeline). NumPy has no
 bfloat16: such a tensor is stored as its int16 bits, viewed back on restore
 from the dtype the manifest records (the reference's ``_to_savable``).
+
+On a device mesh a tree's leaves are ``DTensor``s: ``save`` gathers each
+whole on every rank (a collective, so every rank calls it) and rank 0 writes
+the same files as one device does; ``restore`` into a tree of ``DTensor``s
+keeps each rank's shards of the whole values read. A checkpoint written on
+a mesh so restores on one device, and the other way round.
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch.models.layers import _is_dtensor, distribute, whole
 
 
 def _flatten(tree, prefix=()):
@@ -47,7 +55,11 @@ def _unflatten(paths, leaves) -> dict:
 def _to_savable(t: torch.Tensor) -> np.ndarray:
     """A host copy of ``t`` as NumPy (copied even where ``t`` is on the CPU:
     the train loop updates its tensors in place while a writer thread runs);
-    a dtype NumPy lacks (bfloat16) as its same-width integer bits."""
+    a ``DTensor`` gathered whole first; a dtype NumPy lacks (bfloat16) as its
+    same-width integer bits."""
+    if _is_dtensor(t):
+        with torch.no_grad():
+            t = whole(t)
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -60,15 +72,27 @@ def _from_savable(a: np.ndarray, dtype_str: str) -> torch.Tensor:
     return t if t.dtype == dtype else t.view(dtype)
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of a process group,
+    or a process without one."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save(ckpt_dir: str | Path, step: int, tree, *, blocking: bool = True):
     """Write ``tree`` as step ``step`` and point LATEST at it. With
-    ``blocking=False`` returns the (started) writer thread."""
+    ``blocking=False`` returns the (started) writer thread. In a process
+    group every rank calls it (a ``DTensor`` leaf is gathered whole) and
+    rank 0 writes; the others return None."""
     ckpt_dir = Path(ckpt_dir)
     ckpt_dir.mkdir(parents=True, exist_ok=True)
     flat = _flatten(tree)
     paths = [path for path, _ in flat]
     dtypes = [str(leaf.dtype).replace("torch.", "") for _, leaf in flat]
     host_leaves = [_to_savable(leaf) for _, leaf in flat]
+    if not _writes():
+        return None
 
     def _write():
         tmp = ckpt_dir / f".tmp_step_{step}"
@@ -110,8 +134,10 @@ def latest_step(ckpt_dir: str | Path) -> int | None:
 def restore(ckpt_dir: str | Path, tree_like, *, step: int | None = None, device=None):
     """Restore step ``step`` (LATEST by default) into the structure of
     ``tree_like``: new tensors in the saved dtypes, on ``device`` where given,
-    else on the device of ``tree_like``'s leaf at the same path. Returns
-    (step, tree). Raises ValueError if the saved leaves are not the tree's."""
+    else on the device of ``tree_like``'s leaf at the same path; where that
+    leaf is a ``DTensor``, a ``DTensor`` in its placements holding this
+    rank's shards. Returns (step, tree). Raises ValueError if the saved
+    leaves are not the tree's."""
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -123,9 +149,15 @@ def restore(ckpt_dir: str | Path, tree_like, *, step: int | None = None, device=
     if [path for path, _ in flat] != manifest["paths"]:
         raise ValueError(f"checkpoint {step_dir}: its leaves are not those of the tree given")
     with np.load(step_dir / "shard_0.npz") as data:
-        leaves = [
-            _from_savable(data[f"leaf_{i}"], manifest["dtypes"][i]).to(
-                device if device is not None else like.device)
-            for i, (_, like) in enumerate(flat)
-        ]
+        leaves = [_placed(_from_savable(data[f"leaf_{i}"], manifest["dtypes"][i]), like, device)
+                  for i, (_, like) in enumerate(flat)]
     return step, _unflatten(manifest["paths"], leaves)
+
+
+def _placed(value, like, device):
+    """A restored whole ``value`` on ``device`` (default: ``like``'s), laid out
+    as ``like`` where that is a ``DTensor``."""
+    value = value.to(device if device is not None else like.device)
+    if not _is_dtensor(like):
+        return value
+    return distribute(value, like.device_mesh, like.placements)

@@ -5,6 +5,16 @@ LATEST) and straggler-tolerant data fetch. Used by ``launch/train.py``.
 The weights are drawn from a ``torch.Generator`` seeded with
 ``TrainerConfig.seed`` on the runtime's device (the reference draws from
 ``jax.random.PRNGKey(seed)``); the data are the reference's NumPy draws.
+
+With a mesh runtime (``launch.specs.make_runtime``) every rank draws the same
+weights, lays them out on the mesh in the 2d layout (``interop.place_params``,
+pure data parallel where the config says so), keeps the optimizer state in
+the parameters' placements, and runs the step on the same global batch, of
+which the model takes the rank's rows. Every rank saves (rank 0 writes) and
+restores the same checkpoints. A failure on a mesh fails the run: the other
+ranks may be inside a collective that the failed rank left, so no rank
+restarts alone; the restart is the launch's, in fresh processes that resume
+from LATEST.
 """
 from __future__ import annotations
 
@@ -14,10 +24,13 @@ import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import interop
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import Prefetcher, SyntheticTokens
 from repro_torch.models.layers import Runtime
+from repro_torch.models.layers import local_shard as _local
 from repro_torch.models.model import init_params
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import Optimizer, for_config
@@ -63,13 +76,18 @@ class Trainer:
         dev = self.runtime.device
         self.params = init_params(self.cfg, torch.Generator(device=dev).manual_seed(self.tcfg.seed),
                                   device=dev)
+        if self.runtime.mesh is not None:
+            interop.place_params(self.params, self.cfg, self.runtime.mesh,
+                                 pure_dp=self.cfg.pure_dp)
         self.opt_state = self.optimizer.init(dict(self.params.named_parameters()))
+        if self.runtime.mesh is not None:  # no rank reads LATEST before rank 0 wrote it
+            dist.barrier()
         latest = ckpt.latest_step(self.tcfg.ckpt_dir)
         if latest is not None:
             _, state = ckpt.restore(self.tcfg.ckpt_dir, self._state())
             with torch.no_grad():
                 for name, p in self.params.named_parameters():
-                    p.copy_(state["params"][name])
+                    _local(p).copy_(_local(state["params"][name]))
             self.opt_state = state["opt"]
             self.step = latest
         return self.step
@@ -110,18 +128,23 @@ class Trainer:
             pre.close()
             if pending_ckpt is not None:
                 pending_ckpt.join()
+        if self.runtime.mesh is not None:  # every rank returns after rank 0 wrote
+            dist.barrier()
         return self.history
 
 
 def run_with_recovery(make_trainer, total_steps: int, max_restarts: int = 3,
                       fail_at: int | None = None):
     """Launcher-level fault tolerance: on failure, rebuild the trainer (fresh
-    process semantics), restore from LATEST and continue."""
+    process semantics), restore from LATEST and continue. On a mesh a failure
+    is raised: the ranks restart together, as new processes."""
     restarts = 0
     history = []
     while True:
         tr = make_trainer()
         tr.init_or_restore()
+        if tr.runtime.mesh is not None:
+            return tr.run(steps=total_steps, fail_at=fail_at), restarts
         try:
             history += tr.run(steps=total_steps, fail_at=fail_at)
             return history, restarts

@@ -152,13 +152,43 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 
 MESH_MODULES = ("launch/mesh.py", "launch/specs.py", "launch/traffic.py",
-                "sharding/rules.py", "sharding/__init__.py")
+                "sharding/rules.py", "sharding/__init__.py", "launch/train.py",
+                "train/step.py", "train/optimizer.py", "train/checkpoint.py", "train/loop.py")
+# The sharded train step's code: a failure on a rank fails the run, so none of
+# it catches an exception (no fallback to one device or to the plain route).
+MESH_TRAIN_CODE = ("models/layers.py", "models/model.py", "models/moe.py", "models/mamba.py",
+                   "train/step.py", "train/optimizer.py", "train/checkpoint.py",
+                   "train/loop.py", "launch/train.py")
+# The one handler allowed: the one-device restart of run_with_recovery, which
+# returns before its try on a mesh (tests/test_torch_mesh_train_loop.py
+# holds a failure on the mesh to fail the run on every rank).
+ALLOWED_HANDLERS = {"train/loop.py": {"run_with_recovery"}}
 
 
 def test_mesh_modules_are_in_the_import_check():
     checked = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in PORT_FILES
                if (ROOT / "src" / "repro_torch") in p.parents}
     assert set(MESH_MODULES) <= checked
+
+
+@pytest.mark.parametrize("rel", MESH_TRAIN_CODE)
+def test_mesh_training_code_catches_nothing(rel):
+    tree = ast.parse((ROOT / "src" / "repro_torch" / rel).read_text())
+    allowed = ALLOWED_HANDLERS.get(rel, set())
+    handlers = [node.lineno for fn in ast.walk(tree)
+                if isinstance(fn, ast.FunctionDef) and fn.name not in allowed
+                for node in ast.walk(fn) if isinstance(node, ast.ExceptHandler)]
+    handlers += [node.lineno for node in tree.body if isinstance(node, ast.Try)]
+    assert not handlers, f"{rel}: except clauses at lines {handlers}"
+
+
+def test_production_mesh_launcher_defaults_to_cuda_and_needs_its_ranks():
+    """launch.train --production-mesh builds the CUDA production mesh: in a
+    process without its 256 ranks it raises the mesh's RuntimeError."""
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="mesh \\(16, 16\\) needs 256 ranks"):
+        train.main(["--arch", "mamba2-130m", "--production-mesh"])
 
 
 def test_mesh_entry_points_default_to_cuda(monkeypatch):

@@ -317,12 +317,16 @@ def test_launch_train_runs_on_cpu(tmp_path):
     assert sorted(p.name for p in tmp_path.iterdir()) == ["LATEST", "step_2", "step_4"]
 
 
-def test_launch_train_refuses_the_production_mesh(capsys):
+def test_launch_train_refuses_the_production_mesh():
+    """--production-mesh trains on the production mesh; in a process without
+    its 256 ranks the mesh raises, and nothing falls back to one device
+    (the sharded run itself: tests/test_torch_mesh_train_loop.py)."""
     from repro_torch.launch import train
 
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "gemma-2b", "--production-mesh"])
-    assert "mesh" in capsys.readouterr().err
+    for device in ("cpu", None):
+        args = ["--arch", "gemma-2b", "--production-mesh"] + (["--device", device] if device else [])
+        with pytest.raises(RuntimeError, match="needs 256 ranks but only 0 present"):
+            train.main(args)
 
 
 def write_golden(path=GOLDEN):

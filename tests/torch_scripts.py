@@ -346,3 +346,228 @@ def mesh_gpu_smoke(rank, world):
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
             modes[name] = mode
     return {"rows_equal": bool(rows_equal), "moe": modes}
+
+
+# ----------------------------------------------------------------------------
+# Rank programs of the sharded train step's tests (tests/test_torch_mesh_train*.py)
+# ----------------------------------------------------------------------------
+# The per-leaf gradient cases, each a shard mode of the mesh: name -> (arch,
+# config overrides, B, S).
+GRAD_CASES = {
+    # attention in sequence mode (each rank a block of query rows), the tied head
+    "gemma": ("gemma-2b", {}, 4, 16),
+    # heads split on KV, the q/k/v biases
+    "codeqwen": ("codeqwen1.5-7b", {}, 4, 16),
+    # the MoE in its a2a mode, on given ids
+    "moonshot": ("moonshot-v1-16b-a3b", {}, 4, 16),
+    # pure data parallel over ('data', 'model')
+    "mamba": ("mamba2-130m", {}, 4, 16),
+    # KV 1 does not split, G 4 does: each rank its G / 2 query heads a group
+    "heads_on_g": ("gemma-2b", {"attn_shard": "auto"}, 4, 16),
+    # neither KV 1 nor G 3 splits and S 7 does not either: every rank whole
+    "unsplit": ("gemma-2b", {"n_heads": 3}, 4, 7),
+}
+
+
+def grad_batch(cfg, B, S, seed=5):
+    """Seeded tokens and labels (B, S) of a gradient case."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+            rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
+
+
+def adafactor_grads(lm, seed=7):
+    """{parameter name: seeded float32 gradient} shaped as ``lm``'s
+    parameters (NumPy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {name: rng.standard_normal(tuple(p.shape)).astype(np.float32)
+            for name, p in lm.named_parameters()}
+
+
+# GRAD_CASES whose gradients are also taken through the train step, two
+# microbatches, with the moved weights held for the step and without
+STEP_CASES = ("gemma", "codeqwen", "mamba", "heads_on_g", "unsplit")
+# train.step.hold_budget in those steps: all held, none, and 64 KiB a rank,
+# which holds the first blocks' weights but not all
+HOLDS = {"all": float("inf"), "none": 0, "some": 65536}
+
+
+def step_grads(cfg, lm, mesh, toks, labels, budget):
+    """One float32 AdamW train step of ``lm`` on ``mesh`` over (toks, labels)
+    in two microbatches, holding up to ``budget`` bytes of moved weights
+    (``train.step.hold_budget`` replaced meanwhile): (its loss, the gradient
+    the optimizer took, gathered whole in the reference's tree layout, and
+    the collectives the step issued before the update)."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.train import step as S
+    from repro_torch.train.optimizer import Optimizer, adamw
+
+    base, seen = adamw(), {}
+    with chip_smoke.c10d_calls() as calls:
+        def update(grads, state, params):
+            seen["calls"] = sum(n for n, _ in calls.values())
+            seen["grads"] = interop.params_to_jax(lm, cfg, grads)
+            return base.update(grads, state, params)
+
+        opt = Optimizer(init=base.init, update=update, name="recording")
+        step = S.make_train_step(cfg, make_runtime(cfg, mesh, torch.float32), opt, 2)
+        hold_budget, S.hold_budget = S.hold_budget, lambda runtime: budget
+        try:
+            _, _, metrics = step(lm, opt.init(dict(lm.named_parameters())),
+                                 {"tokens": toks, "labels": labels})
+        finally:
+            S.hold_budget = hold_budget
+    return float(metrics["loss"]), seen["grads"], seen["calls"]
+
+
+def mesh_train_cases(rank, world, routes):
+    """On a (2, 2) mesh, float32, interop.numpy_params(cfg, 0) weights:
+    GRAD_CASES' loss and its gradients (gathered whole, in the reference's
+    tree layout), the MoE case on ``routes``; STEP_CASES' train steps
+    (``step_grads``) with the weights held and without; the reference's
+    test_train_step_runs_on_mesh (reduced codeqwen, two microbatches, the
+    same batch twice); one Adafactor step of the reduced gemma-2b's
+    parameters with adafactor_grads, the parameters after it (whole)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models import moe
+    from repro_torch.models.layers import distribute
+    from repro_torch.models.model import lm_loss
+    from repro_torch.train.optimizer import adafactor, adamw
+    from repro_torch.train.step import make_train_step
+
+    mesh = make_smoke_mesh(2, 2, device_type="cpu")
+    out = {"grads": {}, "step": {}}
+    for name, (arch, changes, B, S) in GRAD_CASES.items():
+        cfg, lm = _mesh_model(None, mesh, cfg=get_config(arch).reduced(**changes))
+        toks, labels = grad_batch(cfg, B, S)
+        held = moe.replaying_routes([torch.as_tensor(r).long() for r in routes[name]]) \
+            if name in routes else contextlib.nullcontext()
+        with held:
+            loss, _ = lm_loss(lm, cfg, make_runtime(cfg, mesh, torch.float32), toks, labels)
+            loss.backward()
+        grads = interop.params_to_jax(lm, cfg, {n: p.grad for n, p in lm.named_parameters()})
+        out["grads"][name] = (float(loss.detach()), grads)
+        if name in STEP_CASES:
+            out["step"][name] = {hold: step_grads(cfg, _mesh_model(None, mesh, cfg=cfg)[1], mesh,
+                                                  toks, labels, budget)
+                                 for hold, budget in HOLDS.items()}
+
+    cfg, lm = _mesh_model("codeqwen1.5-7b", mesh)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32)}
+    opt = adamw(lr=1e-3)
+    state = opt.init(dict(lm.named_parameters()))
+    step = make_train_step(cfg, make_runtime(cfg, mesh, torch.float32), opt, 2)
+    losses = []
+    for _ in range(2):
+        lm, state, metrics = step(lm, state, batch)
+        losses.append(float(metrics["loss"]))
+    out["runs_on_mesh"] = losses
+
+    cfg, lm = _mesh_model("gemma-2b", mesh)
+    params = dict(lm.named_parameters())
+    grads = {n: distribute(torch.as_tensor(g), mesh, params[n].placements)
+             for n, g in adafactor_grads(lm).items()}
+    opt = adafactor(lr=1e-3)
+    opt.update(grads, opt.init(params), params)
+    out["adafactor"] = interop.params_to_jax(lm, cfg)
+    out["placements"] = {n: str(p.placements) for n, p in params.items()}
+    return out
+
+
+def mesh_golden_cases(rank, world, golden):
+    """chip_smoke's phase-23 part (a) on a (2, 2) CPU mesh: each golden
+    entry's curve [(loss, grad_norm)] and the (flash, ssd) launches."""
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    out = {}
+    chip_smoke.part_train_golden(out, {"refs": {"train_golden": golden}, "device": "cpu",
+                                       "mesh": make_smoke_mesh(2, 2, device_type="cpu")})
+    return out
+
+
+def mesh_loop_cases(rank, world, ckpt_dir, one_device_ckpt):
+    """The pod all-reduce, the Trainer, the checkpoints and the launcher on
+    four ranks: compress_allreduce_pod on a 1-pod (1, 4) and a (2, 2)
+    ("pod", "data") mesh (chip_smoke.run_compress); the Trainer's
+    crash-and-resume on the (2, 2) mesh against an uninterrupted run (the
+    parameters whole); the mesh's parameters saved under ``ckpt_dir``, and
+    ``one_device_ckpt`` (written on one device) restored onto the mesh
+    (whole); launch.train's body on the (2, 2) mesh, and the production
+    mesh's error in this group."""
+    import os
+
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh, make_smoke_mesh
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models.layers import whole
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import Trainer, TrainerConfig, run_with_recovery
+
+    out = {"compress_one_pod": chip_smoke.run_compress(make_mesh((1, 4), ("pod", "data"), "cpu"),
+                                                       "cpu"),
+           "compress_two_pods": chip_smoke.run_compress(
+               make_mesh((2, 2), ("pod", "data"), "cpu"), "cpu")}
+    mesh = make_smoke_mesh(2, 2, device_type="cpu")
+    cfg = get_config("gemma-2b").reduced()
+    rt = make_runtime(cfg, mesh, torch.float32)
+
+    def tcfg(sub):
+        return TrainerConfig(seq_len=16, global_batch=4, steps=12, ckpt_every=4,
+                             ckpt_dir=os.path.join(ckpt_dir, sub), seed=0, log_every=1)
+
+    ref = Trainer(cfg, tcfg("ref"), rt)
+    ref.init_or_restore()
+    ref.run()
+    try:  # a failure on the mesh fails the run on every rank
+        run_with_recovery(lambda: Trainer(cfg, tcfg("rec"), rt), total_steps=12, fail_at=6)
+        error = None
+    except RuntimeError as e:
+        error = str(e)
+    resumed_from = ckpt.latest_step(os.path.join(ckpt_dir, "rec"))
+    # the relaunch: fresh trainers on every rank resume from LATEST
+    _, restarts = run_with_recovery(lambda: Trainer(cfg, tcfg("rec"), rt), total_steps=12)
+    rec = Trainer(cfg, tcfg("rec"), rt)
+    step = rec.init_or_restore()
+    out["recovery"] = (error, resumed_from, restarts, step,
+                       interop.params_to_jax(ref.params, cfg),
+                       interop.params_to_jax(rec.params, cfg))
+
+    _, lm = _mesh_model(None, mesh, cfg=cfg)
+    ckpt.save(os.path.join(ckpt_dir, "mesh"), 1, {"params": dict(lm.named_parameters())})
+    _, tree = ckpt.restore(one_device_ckpt, {"params": dict(lm.named_parameters())})
+    with torch.no_grad():
+        out["restored"] = {n: whole(v).numpy() for n, v in tree["params"].items()}
+    out["restored_placements"] = {n: str(v.placements) for n, v in tree["params"].items()}
+
+    args = train.parse(["--arch", "gemma-2b", "--reduced", "--device", "cpu", "--steps", "4",
+                        "--seq-len", "32", "--global-batch", "4", "--ckpt-every", "2",
+                        "--ckpt-dir", os.path.join(ckpt_dir, "launch")])
+    history, restarts = train.run(args, mesh)
+    out["launch"] = ([h["loss"] for h in history], restarts)
+    try:
+        train.main(["--arch", "gemma-2b", "--production-mesh", "--device", "cpu"])
+        out["production_error"] = None
+    except RuntimeError as e:
+        out["production_error"] = str(e)
+    return out
