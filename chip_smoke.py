@@ -192,10 +192,13 @@ is non-zero:
                as single allocations). Each document valid (also compact) and
                equal to the reference's (its vector engine on the CPU) field
                by field: integers, booleans, strings and lists exactly, floats
-               within rtol 1e-6, the wall clocks left out. Per trace its wall clock, solves, re-plans and each
-               policy's replan_time_s_mean; crms_grid launches counted from
-               zero at least the phase's re-plans through CRMS (all but
-               drf's); the phase within 180 s.
+               within rtol 1e-6, the wall clocks left out. Each trace (and the
+               crunch) runs in a worker process of its own, all at once: the
+               solves are single-threaded host code. Per trace its wall
+               clock, solves, re-plans and each policy's replan_time_s_mean;
+               crms_grid launches counted from zero in each worker, their sum
+               at least the phase's re-plans through CRMS (all but drf's);
+               the phase within 180 s.
  19. baselines — (right after phase 18) the search baselines and the fleet
                placement layer on the card (device None), against
                tests/data/torch_baselines_golden.json and
@@ -322,6 +325,24 @@ is non-zero:
                refs = mesh_train_references("cpu", reduced=True), then
                run_mesh(refs | {"train_golden": golden}, None, "cpu",
                parts=tuple(TRAIN_PARTS), reduced=True).
+ 24. dryrun — (last) the dry-run (launch/dryrun.py) on this host, nothing
+               allocated or launched: (a) run_cell with fake CUDA tensors on
+               the 256-rank single_pod mesh of a fake process group for
+               gemma-2b decode_32k and prefill_32k and mamba2-130m
+               prefill_32k: status ok, every key of the reference's row, the
+               flash operator in gemma-2b's prefill trace, the SSD operator
+               in mamba2-130m's, neither in gemma-2b's decode step (its
+               attention over the cache is plain torch); (b) phases 15's and
+               16's exact train steps traced with no mesh from where
+               train_full resets the peak: the flash / SSD operator calls
+               equal to the launches those phases counted a step, and
+               MemTracker's peak over one step within [0.8, 1.25] of the
+               max_memory_allocated that train_full read; each trace's
+               seconds, both peaks and their ratio; the host time of a flash
+               call through its operator, bare and through
+               ops.flash_attention; the phase within 90 s.
+               The kernels line's flash and ssd_chunk entries hold the
+               operator counts under "dryrun".
 
 The last three lines are nvidia-smi's "name, power.limit", a JSON object with
 the kernels' numbers, and {"ok": true, "device": {...}}. Without a CUDA device
@@ -1661,7 +1682,7 @@ def train_full(arch, batch_size, seq_len, phase):
         max_memory_allocated_gb=peak / 1e9, **gaps, **prof, **shares,
         phase_wall_s=time.perf_counter() - t_phase)
     return {"launches": launches, "launches_per_step": per_step, "steady_step_ms": steady_ms,
-            "peak_gb": peak / 1e9, **gaps, **prof}
+            "peak_gb": peak / 1e9, "peak_bytes": peak, **gaps, **prof}
 
 
 SIM_M = 64  # the allocator's largest instance, simulated at the reference's defaults
@@ -2151,16 +2172,39 @@ def replay_scenarios(golden, device):
     return traces + [replay_crunch(golden["crunch"], device)]
 
 
-def scenario_phase():
-    """Phase 18: the six traces of tests/data/torch_scenario_golden.json on
-    the card (device None), crms_grid counted from zero."""
+def scenario_job(name, device=None):
+    """One trace of phase 18 ("crunch": the crunch) replayed on ``device``
+    (None: the card) in a worker process of its own, crms_grid counted from
+    zero there: (its record, its crms_grid launches)."""
+    torch.set_num_threads(1)
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import crms_grid
 
     golden = json.loads(SCENARIO_GOLDEN.read_text())
-    t_phase = time.perf_counter()
     crms_grid.launches = 0
-    traces = replay_scenarios(golden, None)
-    launches = crms_grid.launches
+    if name == "crunch":
+        res = replay_crunch(golden["crunch"], device)
+    else:
+        res = replay_trace(name, golden["traces"][name], device)
+    return res, crms_grid.launches
+
+
+def scenario_phase(device=None):
+    """Phase 18: the six traces of tests/data/torch_scenario_golden.json on
+    the card (device None; "cpu" rehearses it here), each in a worker
+    process of its own and all at once (a solve is single-threaded host
+    code), crms_grid counted from zero in each."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    golden = json.loads(SCENARIO_GOLDEN.read_text())
+    names = [*golden["traces"], "crunch"]
+    t_phase = time.perf_counter()
+    with ProcessPoolExecutor(len(names), mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(scenario_job, names, [device] * len(names)))
+    traces = [res for res, _ in results]
+    launches = sum(n for _, n in results)
     wall = time.perf_counter() - t_phase
     replans = sum(t["replans"] for t in traces)
     crms_replans = sum(t["crms_replans"] for t in traces)
@@ -3818,6 +3862,173 @@ def mesh_train_phase(train_golden):
                     "checked": checked["ssd_chunk"]}}
 
 
+# ----------------------------------------------------------------------------
+# The dry-run on the card's host (phase 24)
+# ----------------------------------------------------------------------------
+DRYRUN_CELLS = (("gemma-2b", "decode_32k"), ("gemma-2b", "prefill_32k"),
+                ("mamba2-130m", "prefill_32k"))  # (a), each on single_pod
+DRYRUN_LIMIT_S = 90.0
+DRYRUN_MEMORY_RATIO = (0.8, 1.25)  # the trace's peak over the card's, phases 15-16
+
+
+def dryrun_train_trace(arch, batch_size, seq_len, device="cuda"):
+    """Phase 15's / 16's train step (``train_full``: float32 parameters, the
+    config's optimizer and microbatches, bf16 compute through the kernels)
+    traced on fake tensors of ``device`` with no mesh, from where
+    ``train_full`` resets the peak (the parameters and the optimizer's state
+    in place) over one step: {"seconds", "flash_ops", "ssd_ops", "peak_bytes"
+    (MemTracker's)}."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models.layers import Runtime
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import for_config
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        lm = LM(cfg, device, torch.float32)
+        opt = for_config(cfg)
+        state = opt.init(dict(lm.named_parameters()))
+        batch = {name: torch.zeros((batch_size, seq_len), dtype=torch.int32, device=device)
+                 for name in ("tokens", "labels")}
+        step = make_train_step(cfg, Runtime(device, torch.bfloat16, "auto"), opt)
+        got = dryrun.trace_step(step, (lm, state, batch), lm, device=device)
+    return {"seconds": time.perf_counter() - t0, "trace_s": got["seconds"],
+            "flash_ops": got["kernel_ops"]["flash_fwd"],
+            "ssd_ops": got["kernel_ops"]["ssd_chunk_fwd"], "peak_bytes": got["peak_bytes"],
+            "flops": got["flops"]}
+
+
+def dryrun_job(job):
+    """One trace of phase 24 in a worker process of its own (its fake
+    process group and fake tensors die with it): ("cell", arch, shape) runs
+    ``run_cell`` on single_pod with fake CUDA tensors; ("train", arch, B, S)
+    ``dryrun_train_trace``. Returns the row / the trace's numbers, with the
+    job's wall clock in the worker."""
+    torch.set_num_threads(1)
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    t0 = time.perf_counter()
+    if job[0] == "cell":
+        from repro_torch.launch import dryrun
+
+        out = dryrun.run_cell(job[1], job[2], "single_pod", device="cuda", verbose=False)
+        # the card the fake CUDA mesh of 256 ranks set for this process's rank 0
+        out["mesh_cuda_device"] = torch.cuda.current_device()
+    else:
+        out = dryrun_train_trace(*job[1:])
+    out["job_wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def operator_host_us(calls=500):
+    """Host microseconds a call of the flash kernel at a decode-like bf16
+    shape (4, 1, 512, 1, 8, 256): through its operator
+    (``flash_attention.flash_fwd``), bare (``flash_attention_fwd``) and
+    through ``ops.flash_attention``; back-to-back calls between two
+    synchronisations, after 20 warm-up calls each."""
+    from repro_torch.kernels import flash_attention, ops
+
+    q = torch.randn(4, 1, 1, 8, 256, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(4, 512, 1, 256, device="cuda", dtype=torch.bfloat16)
+    out = {}
+    for name, fn in (("operator", lambda: flash_attention.flash_fwd(q, k, k, True, 0)),
+                     ("bare", lambda: flash_attention.flash_attention_fwd(q, k, k)),
+                     ("ops_flash_attention", lambda: ops.flash_attention(q, k, k))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e6 * (time.perf_counter() - t0) / calls
+    return out
+
+
+def dryrun_phase(gemma_train, mamba_train):
+    """Phase 24: the dry-run on this host with fake CUDA tensors, its five
+    traces in worker processes at once (each single-threaded host code). (a)
+    ``run_cell`` at device "cuda" on the 256-rank single_pod mesh for
+    DRYRUN_CELLS: status ok, every key of the reference's row, the flash
+    operator in gemma-2b's prefill and the SSD operator in mamba2-130m's, none
+    in gemma-2b's decode step (its attention over the cache is plain torch);
+    (b) phases 15's and 16's train steps traced with no mesh: their flash /
+    SSD operator calls equal to the launches those phases counted a step, and
+    the trace's peak memory within DRYRUN_MEMORY_RATIO of the card's
+    ``max_memory_allocated`` there. Each trace's seconds; the phase within
+    DRYRUN_LIMIT_S."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t_phase = time.perf_counter()
+    free_card()
+    cards = {FULL_ARCH: (GEMMA_TRAIN, gemma_train), SSM_ARCH: (MAMBA_TRAIN, mamba_train)}
+    jobs = [("cell", arch, shape) for arch, shape in DRYRUN_CELLS]
+    jobs += [("train", arch, *shape) for arch, (shape, _) in cards.items()]
+    with ProcessPoolExecutor(len(jobs), mp_context=multiprocessing.get_context("spawn")) as pool:
+        results = list(pool.map(dryrun_job, jobs))
+    cells = {}
+    for (_, arch, shape), row in zip(jobs[:len(DRYRUN_CELLS)], results):
+        if row["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape}: {row['status']}\n"
+                                 f"{row.get('traceback', '')}")
+        missing = DRYRUN_ROW_KEYS - set(row)
+        if missing:
+            raise AssertionError(f"dryrun {arch} {shape}: the row lacks {sorted(missing)}")
+        cells[f"{arch}/{shape}"] = row
+        log("dryrun", arch=arch, shape=shape, mesh="single_pod", device=row["device"],
+            mesh_cuda_device=row["mesh_cuda_device"],
+            trace_s=row["lower_s"], job_wall_s=row["job_wall_s"], kernel_ops=row["kernel_ops"],
+            flops_per_device=row["hlo_flops_per_device"],
+            bytes_per_device=row["hlo_bytes_per_device"],
+            collective_bytes_per_device=row["collective_bytes_per_device"],
+            memory_analysis=row["memory_analysis"], dominant=row["dominant"])
+    ops_of = {key: row["kernel_ops"] for key, row in cells.items()}
+    if not (ops_of["gemma-2b/prefill_32k"]["flash_fwd"] > 0
+            and ops_of["mamba2-130m/prefill_32k"]["ssd_chunk_fwd"] > 0
+            and ops_of["gemma-2b/decode_32k"] == {"flash_fwd": 0, "ssd_chunk_fwd": 0}):
+        raise AssertionError(f"dryrun: kernel operators in the traces {ops_of}")
+    traces = {}
+    for (_, arch, B, S), got in zip(jobs[len(DRYRUN_CELLS):], results[len(DRYRUN_CELLS):]):
+        card = cards[arch][1]
+        ratio = got["peak_bytes"] / card["peak_bytes"]
+        traces[arch] = dict(got, card_peak_bytes=card["peak_bytes"], peak_ratio=ratio)
+        log("dryrun", arch=arch, train_step=(B, S), **traces[arch],
+            card_launches_per_step=card["launches_per_step"])
+        if (got["flash_ops"], got["ssd_ops"]) != tuple(card["launches_per_step"]):
+            raise AssertionError(f"dryrun {arch}: (flash, ssd) operators in the trace "
+                                 f"{(got['flash_ops'], got['ssd_ops'])} != the card's launches "
+                                 f"{card['launches_per_step']}")
+        if not DRYRUN_MEMORY_RATIO[0] <= ratio <= DRYRUN_MEMORY_RATIO[1]:
+            raise AssertionError(f"dryrun {arch}: the trace's peak {got['peak_bytes']} over the "
+                                 f"card's {card['peak_bytes']} = {ratio:.3f}, outside "
+                                 f"{DRYRUN_MEMORY_RATIO}")
+    host_us = operator_host_us()
+    wall = time.perf_counter() - t_phase
+    log("dryrun", operator_host_us=host_us, phase_wall_s=wall)
+    if wall > DRYRUN_LIMIT_S:
+        raise AssertionError(f"dryrun: the phase took {wall:.1f} s > {DRYRUN_LIMIT_S} s")
+    return {"cells": {k: {"trace_s": r["lower_s"], "kernel_ops": r["kernel_ops"]}
+                      for k, r in cells.items()},
+            "train": traces, "operator_host_us": host_us, "phase_wall_s": wall}
+
+
+# every key of a row of the reference's run_cell (repro/launch/dryrun.py:288, :366-394)
+DRYRUN_ROW_KEYS = {
+    "arch", "shape", "mesh", "status", "chips", "global_batch", "seq", "kind", "lower_s",
+    "compile_s", "hlo_flops_per_device", "hlo_bytes_per_device", "traffic_bytes_per_device",
+    "hlo_flops_total", "hlo_bytes_total", "collective_bytes_per_device",
+    "collective_bytes_total", "collective_breakdown", "stage_bodies", "compute_term_s",
+    "memory_term_s", "collective_term_s", "dominant", "model_flops", "model_flops_ratio",
+    "params_bytes", "kv_bytes_per_seq", "memory_analysis", "memory_analysis_production_mb",
+    "microbatches_production"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA device",
@@ -3901,10 +4112,10 @@ def main() -> int:
         raise AssertionError(f"crms_priority launched the scalar-alpha kernel {launches} times")
 
     # 18. the policies and the scenario layer: six traces replayed on the card
-    # against the reference's documents, crms_grid counted from zero. It runs
-    # here, before any model is loaded: its solves are host-bound, and in a
-    # process that has held the serving and training models each took ~1.8x
-    # as long
+    # against the reference's documents, crms_grid counted from zero, each
+    # trace in a worker process of its own. It runs here, before any model is
+    # loaded: its solves are host-bound, and in a process that has held the
+    # serving and training models each took ~1.8x as long
     scenarios = scenario_phase()
 
     # 19. the search baselines and the fleet placement layer against the
@@ -3998,6 +4209,11 @@ def main() -> int:
     # golden file and single-rank steps
     mesh_train = mesh_train_phase(train_golden)
 
+    # 24. the dry-run on this host: two production cells' traces (fake CUDA
+    # tensors, a fake 256-rank group) and phases 15-16's train steps traced
+    # against their launches and peak memory on the card
+    dry = dryrun_phase(gemma_train, mamba_train)
+
     print(smi, flush=True)
     timed_keys = ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "plain_graph_ms",
                   "bound_ms", "bound_by", "library_ms", "library_graph_ms")
@@ -4031,6 +4247,9 @@ def main() -> int:
                      **{name: {key: res[key] for key in timed_keys}
                         for name, res in audio_flash.items()}},
         "mesh": mesh["flash"], "mesh_train": mesh_train["flash"],
+        "dryrun": {"train_step_ops": dry["train"][FULL_ARCH]["flash_ops"],
+                   "operator_host_us": dry["operator_host_us"],
+                   "cell_ops": {k: c["kernel_ops"]["flash_fwd"] for k, c in dry["cells"].items()}},
         "training": {"launches": gemma_train["launches"][0],
                      "launches_per_step": gemma_train["launches_per_step"][0],
                      "grad_max_abs_err": max(r["max_abs_err"] for r in flash_grads),
@@ -4043,6 +4262,9 @@ def main() -> int:
         "ms": ssd_path["ms"], "graph_ms": ssd_path["graph_ms"], "plain_ms": ssd_path["plain_ms"],
         "bound_ms": ssd_path["bound_ms"], "bound_by": ssd_path["bound_by"],
         "library_ms": None, "mesh": mesh["ssd"], "mesh_train": mesh_train["ssd"],
+        "dryrun": {"train_step_ops": dry["train"][SSM_ARCH]["ssd_ops"],
+                   "cell_ops": {k: c["kernel_ops"]["ssd_chunk_fwd"]
+                                for k, c in dry["cells"].items()}},
         "training": {"launches": mamba_train["launches"][1],
                      "launches_per_step": mamba_train["launches_per_step"][1],
                      "fwd_device_ms_per_step": mamba_train["ssd_fwd_device_ms"],

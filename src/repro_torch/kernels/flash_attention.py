@@ -20,12 +20,19 @@ The source is compiled with ``nvcc`` for ``sm_90a`` at first use by
 ``kernels/build.py`` (a plain C launcher, loaded with ``ctypes``); nothing is
 compiled or loaded at import time. ``launches`` counts the kernel launches
 this process made.
+
+``flash_fwd`` is the kernel as the operator ``torch.ops.repro_torch.flash_fwd``
+(``ops.flash_attention`` calls it): a trace on fake tensors (the dry-run,
+``launch/dryrun.py``) sees the operator, its fake version gives its output's
+shape without a card, and ``flash_fwd_flops`` is its count for torch's FLOP
+counter. Only a real launch adds to ``launches``.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import build_library
 
@@ -51,14 +58,10 @@ def build(force: bool = False) -> dict:
     return info
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool = True, offset: int = 0):
-    """q (B, Sq, KV, G, hd); k/v (B, Skv, KV, hd): contiguous CUDA tensors of
-    one dtype (float32 or bfloat16). Launches the kernel on the current
-    stream and returns out (B, Sq, KV, G, hd) in q's dtype. With ``causal``,
-    query row i sees the keys <= ``offset`` + i (0: top-left)."""
-    global launches
-    if not q.is_cuda:
-        raise ValueError(f"flash_attention: the CUDA kernel needs CUDA tensors, got {q.device}")
+def check_inputs(q, k, v, offset: int = 0):
+    """The kernel's checks of its inputs' shapes, dtypes, devices and
+    layout, which the op's fake version (``flash_fwd``) repeats without a
+    card: ValueError / TypeError where the kernel would refuse them."""
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q must be (B, Sq, KV, G, hd) and k/v (B, Skv, KV, hd)")
     B, Sq, KV, G, hd = q.shape
@@ -82,6 +85,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, offset: int = 0):
         raise ValueError(f"flash_attention: offset must be >= 0, got {offset}")
     if min(B, Sq, Skv, KV, G) == 0:
         raise ValueError(f"flash_attention: empty input q {tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, offset: int = 0):
+    """q (B, Sq, KV, G, hd); k/v (B, Skv, KV, hd): contiguous CUDA tensors of
+    one dtype (float32 or bfloat16). Launches the kernel on the current
+    stream and returns out (B, Sq, KV, G, hd) in q's dtype. With ``causal``,
+    query row i sees the keys <= ``offset`` + i (0: top-left)."""
+    global launches
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention: the CUDA kernel needs CUDA tensors, got {q.device}")
+    check_inputs(q, k, v, offset)
+    B, Sq, KV, G, hd = q.shape
+    Skv = k.shape[1]
     # the kernels copy q/k/v rows in 16-byte pieces (cp.async, TMA); a view
     # that starts mid-piece is copied to fresh (aligned) storage
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
@@ -100,3 +116,32 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, offset: int = 0):
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {status}")
     launches += 1
     return out
+
+
+# ----------------------------------------------------------------------------
+# The kernel as an operator that a trace sees
+# ----------------------------------------------------------------------------
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=(),
+                         schema="(Tensor q, Tensor k, Tensor v, bool causal, int offset) -> Tensor")
+def flash_fwd(q, k, v, causal, offset):
+    """The kernel as ``torch.ops.repro_torch.flash_fwd``: on real tensors
+    ``flash_attention_fwd`` (which launches it, or raises off the card); on
+    fake tensors (a dry-run's trace) its fake version gives the output's
+    shape and dtype, and nothing runs."""
+    return flash_attention_fwd(q, k, v, causal=causal, offset=offset)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, causal, offset):
+    check_inputs(q, k, v, offset)
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def flash_fwd_flops(q_shape, k_shape, v_shape, causal, offset, *args, **kwargs) -> int:
+    """The products of one call: Q Kᵀ and P V, 2 hd each per score entry, over
+    every (query row, key) entry of the Sq x Skv rectangle, causal or not:
+    the tiles a causal call skips above its diagonal are counted, as torch's
+    FLOP counter counts its own fused attention."""
+    B, Sq, KV, G, hd = q_shape
+    return 4 * B * Sq * k_shape[1] * KV * G * hd

@@ -3,7 +3,12 @@
 backend:
   'auto'      — the hand-written CUDA kernel for CUDA tensors (it launches or
                 raises; there is no fallback), its plain-torch version
-                (ref.py) for CPU tensors
+                (ref.py) for CPU tensors; flash_attention and ssd_chunks
+                reach their kernels through its operator
+                (``torch.ops.repro_torch.flash_fwd`` / ``ssd_chunk_fwd``),
+                which they also call on fake tensors of any device (a
+                dry-run's trace), where the operator's fake version gives the
+                shapes and nothing runs
   'reference' — crms_grid: the float64 oracle; flash_attention and
                 ssd_chunks: the plain version (ref.py), on whatever device
                 the tensors are
@@ -19,14 +24,25 @@ differentiates its einsum oracle.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+# the kernels' host modules register their operators and FLOP formulas (they
+# build and load nothing at import)
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd as _ssd
 
 F32 = torch.float32
 # profiler ranges around the two backwards (torch.profiler traces attribute
 # the device time of the kernels launched inside them)
 FLASH_BWD_RANGE = "flash_attention_bwd"
 SSD_BWD_RANGE = "ssd_chunk_bwd"
+
+
+def _kernel_route(t, backend: str) -> bool:
+    """Whether ``backend`` sends ``t`` to the kernel's operator: "auto" with
+    a CUDA tensor, or with a fake tensor whatever its device."""
+    return backend == "auto" and (t.is_cuda or isinstance(t, FakeTensor))
 
 
 # ----------------------------------------------------------------------------
@@ -55,20 +71,18 @@ def crms_grid(kappa, lam, xbar, n, c, m, *, caps_cpu, power_span, alpha, beta,
 # flash attention — q (B,Sq,KV,G,hd), k/v (B,Skv,KV,hd); see flash_attention.py
 # ----------------------------------------------------------------------------
 class FlashAttention(torch.autograd.Function):
-    """Attention with a gradient: the forward is the CUDA kernel on CUDA
-    tensors with ``backend="auto"``, else the plain version; the backward is
-    ``ref.flash_attention_bwd`` at blocks of ``qb`` query rows and ``kb`` keys
-    (the reference's 512 / 1024 by default), from the saved q, k, v and
-    output. ``offset``: the query rows are rows offset.. of the keys'
-    sequence (a causal row i sees keys <= offset + i)."""
+    """Attention with a gradient: the forward is the CUDA kernel's operator
+    on CUDA (or fake) tensors with ``backend="auto"``, else the plain
+    version; the backward is ``ref.flash_attention_bwd`` at blocks of ``qb``
+    query rows and ``kb`` keys (the reference's 512 / 1024 by default), from
+    the saved q, k, v and output. ``offset``: the query rows are rows
+    offset.. of the keys' sequence (a causal row i sees keys <= offset +
+    i)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, backend, qb, kb, offset=0):
-        if backend == "auto" and q.is_cuda:
-            from repro_torch.kernels.flash_attention import flash_attention_fwd
-
-            out = flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
-                                      causal=causal, offset=offset)
+        if _kernel_route(q, backend):
+            out = _flash.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), causal, offset)
         else:
             out = _ref.flash_attention_plain(q, k, v, causal, offset=offset)
         ctx.save_for_backward(q, k, v, out)
@@ -101,18 +115,16 @@ def flash_attention(q, k, v, causal: bool = True, backend: str = "auto", offset:
 # ----------------------------------------------------------------------------
 class SSDChunk(torch.autograd.Function):
     """The SSD intra-chunk step with a gradient: the forward is the CUDA
-    kernel on CUDA tensors with ``backend="auto"``, else the plain version,
-    returning y_diag, the chunk states and the chunks' cumsum of da; the
-    backward recomputes ``ref.ssd_chunk_plain`` from the saved inputs under
-    autograd and returns its gradient (the reference differentiates its
-    einsum oracle)."""
+    kernel's operator on CUDA (or fake) tensors with ``backend="auto"``, else
+    the plain version, returning y_diag, the chunk states and the chunks'
+    cumsum of da; the backward recomputes ``ref.ssd_chunk_plain`` from the
+    saved inputs under autograd and returns its gradient (the reference
+    differentiates its einsum oracle)."""
 
     @staticmethod
     def forward(ctx, x, bmat, cmat, da, chunk, backend):
-        if backend == "auto" and x.is_cuda:
-            from repro_torch.kernels.ssd import ssd_chunk_fwd
-
-            outs = ssd_chunk_fwd(x, bmat, cmat, da, chunk=chunk)
+        if _kernel_route(x, backend):
+            outs = _ssd.ssd_chunk_op(x, bmat, cmat, da, chunk)
         else:
             outs = _ref.ssd_chunk_plain(x, bmat, cmat, da, chunk)
         ctx.save_for_backward(x, bmat, cmat, da)

@@ -19,12 +19,20 @@ The source is compiled with ``nvcc`` for ``sm_90a`` at first use by
 ``kernels/build.py`` (a plain C launcher, loaded with ``ctypes``); nothing is
 compiled or loaded at import time. ``launches`` counts the kernel launches
 this process made.
+
+``ssd_chunk_op`` is the kernel as the operator
+``torch.ops.repro_torch.ssd_chunk_fwd`` (``ops.ssd_chunks`` calls it): a
+trace on fake tensors (the dry-run, ``launch/dryrun.py``) sees the operator,
+its fake version gives its outputs' shapes without a card, and
+``ssd_chunk_flops`` is its count for torch's FLOP counter. Only a real launch
+adds to ``launches``.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.build import build_library
 
@@ -60,14 +68,10 @@ def head_group() -> int:
     return _lib.ssd_chunk_head_group()
 
 
-def ssd_chunk_fwd(x, bmat, cmat, da, *, chunk: int):
-    """x (B, S, H, P); bmat/cmat (B, S, N); da (B, S, H): contiguous float32
-    CUDA tensors. Launches the kernel on the current stream and returns
-    y_diag (B, S, H, P), states (B, S // chunk, H, P, N) and each chunk's
-    cumsum of da (B, S, H), float32."""
-    global launches
-    if not x.is_cuda:
-        raise ValueError(f"ssd_chunk_fwd: the CUDA kernel needs CUDA tensors, got {x.device}")
+def check_inputs(x, bmat, cmat, da, chunk: int):
+    """The kernel's checks of its inputs' shapes, dtypes, devices, layout and
+    chunk, which the op's fake version (``ssd_chunk_op``) repeats without a
+    card: ValueError / TypeError where the kernel would refuse them."""
     if x.dim() != 4 or bmat.dim() != 3 or cmat.dim() != 3 or da.dim() != 3:
         raise ValueError("ssd_chunk_fwd: x must be (B, S, H, P), bmat/cmat (B, S, N) and "
                          "da (B, S, H)")
@@ -92,6 +96,19 @@ def ssd_chunk_fwd(x, bmat, cmat, da, *, chunk: int):
             raise ValueError(f"ssd_chunk_fwd: {name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"ssd_chunk_fwd: {name} must be contiguous")
+
+
+def ssd_chunk_fwd(x, bmat, cmat, da, *, chunk: int):
+    """x (B, S, H, P); bmat/cmat (B, S, N); da (B, S, H): contiguous float32
+    CUDA tensors. Launches the kernel on the current stream and returns
+    y_diag (B, S, H, P), states (B, S // chunk, H, P, N) and each chunk's
+    cumsum of da (B, S, H), float32."""
+    global launches
+    if not x.is_cuda:
+        raise ValueError(f"ssd_chunk_fwd: the CUDA kernel needs CUDA tensors, got {x.device}")
+    check_inputs(x, bmat, cmat, da, chunk)
+    B, S, H, P = x.shape
+    N = bmat.shape[-1]
     # the kernel copies x, B and C rows in 16-byte pieces; a view that starts
     # mid-piece is copied to fresh (aligned) storage
     x, bmat, cmat = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, bmat, cmat))
@@ -110,3 +127,38 @@ def ssd_chunk_fwd(x, bmat, cmat, da, *, chunk: int):
         raise RuntimeError(f"ssd_chunk_fwd: kernel launch failed with CUDA error {status}")
     launches += 1
     return y, states, cum
+
+
+# ----------------------------------------------------------------------------
+# The kernel as an operator that a trace sees
+# ----------------------------------------------------------------------------
+@torch.library.custom_op(
+    "repro_torch::ssd_chunk_fwd", mutates_args=(),
+    schema="(Tensor x, Tensor bmat, Tensor cmat, Tensor da, int chunk) -> (Tensor, Tensor, Tensor)")
+def ssd_chunk_op(x, bmat, cmat, da, chunk):
+    """The kernel as ``torch.ops.repro_torch.ssd_chunk_fwd``: on real tensors
+    ``ssd_chunk_fwd`` (which launches it, or raises off the card); on fake
+    tensors (a dry-run's trace) its fake version gives y_diag, the states and
+    the cumsum's shapes, and nothing runs."""
+    return ssd_chunk_fwd(x, bmat, cmat, da, chunk=chunk)
+
+
+@ssd_chunk_op.register_fake
+def _ssd_chunk_fake(x, bmat, cmat, da, chunk):
+    check_inputs(x, bmat, cmat, da, chunk)
+    B, S, H, P = x.shape
+    states = x.new_empty((B, S // chunk, H, P, bmat.shape[-1]))
+    return torch.empty_like(x), states, torch.empty_like(da)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_chunk_fwd)
+def ssd_chunk_flops(x_shape, b_shape, c_shape, da_shape, chunk, *args, **kwargs) -> int:
+    """The products of one call, the three chunk einsums of
+    ``ref.ssd_chunk_plain``: per chunk of Q positions the scores C Bᵀ (2 Q² N),
+    y_diag's (scores ⊙ L) x (2 Q² H P) and the states' xᵀ (B ⊙ decay)
+    (2 Q H P N). Every score entry of the Q x Q tile is counted, the ones
+    above its diagonal (masked to 0) too, as the plain version's einsum
+    computes them."""
+    B, S, H, P = x_shape
+    N = b_shape[-1]
+    return 2 * B * S * (chunk * N + chunk * H * P + H * P * N)

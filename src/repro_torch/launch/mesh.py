@@ -13,6 +13,11 @@ rank calls them with the same arguments (SPMD). The production backend is
 ``nccl``, one rank a card; ``gloo`` runs the same collectives on CPU tensors
 (the tests) and on ranks that share one card, which NCCL refuses.
 
+``fake_world`` stands one process in for rank 0 of a production deployment
+(the dry-run, ``launch/dryrun.py``): torch's "fake" backend answers every
+collective at once and moves nothing, so the mesh's code runs without its
+ranks; with fake tensors (``FakeTensorMode``) nothing is allocated either.
+
 ``spawn`` starts ``world_size`` ranks on this host, each with one torch
 thread, and joins them through a ``FileStore`` in a fresh temporary directory
 (no TCP port, so parallel test workers never collide) with gloo on the
@@ -21,6 +26,7 @@ rank's traceback.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -64,6 +70,38 @@ def make_mesh(shape: tuple, axes: tuple, device_type: str = "cuda"):
     """Any mesh of the given shape and axis names over the first ranks (the
     fleet's row solve takes a 1-D ("nodes",) mesh)."""
     return _mesh(tuple(shape), tuple(axes), device_type)
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, *, device_type: str = "cuda", shape: tuple | None = None,
+               axes: tuple | None = None):
+    """This process as rank 0 of ``world_size`` ranks joined by torch's
+    "fake" process group (over a ``FakeStore``: no rank beside this one
+    exists, and every collective returns at once with its buffers as they
+    were). Yields the mesh on ``device_type``: the production mesh of the
+    world (256 ranks: (16, 16) ("data", "model"); 512: (2, 16, 16) ("pod",
+    "data", "model")), or ``shape`` with ``axes``. The group is destroyed on
+    exit, so none outlives the block; refuses to start (RuntimeError) where
+    a process group is already up."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a process group is already initialised in this "
+                           "process; a fake world needs a process without one")
+    # importing the module registers the "fake" backend (and its store)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if shape is None:
+        production = {256: ((16, 16), PRODUCTION_AXES), 512: ((2, 16, 16), MULTI_POD_AXES)}
+        if world_size not in production:
+            raise ValueError(f"fake_world: no production mesh of {world_size} ranks; "
+                             "give shape and axes")
+        shape, axes = production[world_size]
+    if math.prod(shape) != world_size:
+        raise ValueError(f"fake_world: mesh {tuple(shape)} is not {world_size} ranks")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
+    try:
+        yield _mesh(tuple(shape), tuple(axes), device_type)
+    finally:
+        dist.destroy_process_group()
 
 
 def mesh_shape(mesh) -> dict:

@@ -512,8 +512,13 @@ class _RowLookup(torch.autograd.Function):
         idx, inside = ctx.saved_tensors
         mesh, i, others, pls, shape, stride, dtype, local_shape = ctx.meta
         g = _all_gather(_wire(g), mesh.get_group(i), mesh.size(i), 0)
-        grad = torch.zeros(local_shape, dtype=g.dtype, device=g.device)
-        grad.index_add_(0, idx[inside], g[inside])
+        # the tokens outside this rank's rows add into a spare last row, which
+        # is dropped: the same sums as a masked index_add_, with no shape that
+        # depends on the tokens (a trace on fake tensors runs it)
+        rows = torch.where(inside, idx, local_shape[0]).reshape(-1)
+        grad = torch.zeros((local_shape[0] + 1, *local_shape[1:]), dtype=g.dtype, device=g.device)
+        grad.index_add_(0, rows, g.reshape(-1, *local_shape[1:]))
+        grad = grad[:-1]
         for k in others:
             grad = _all_reduce(grad, mesh.get_group(k))
         return (DTensor.from_local(grad.to(dtype), mesh, pls, run_check=False, shape=shape,

@@ -536,3 +536,33 @@ def test_two_ranks_on_the_card_fleet_rows_and_moe(cuda_device):
     for rec in spawn(mesh_gpu_smoke, 2, device="cuda", timeout=600):
         assert rec["rows_equal"]
         assert rec["moe"] == {"a2a": "a2a", "replicated": "replicated"}
+
+
+@pytest.mark.gpu
+def test_kernel_operators_launch_the_kernels_once_and_fakes_never(cuda_device):
+    """``torch.ops.repro_torch.flash_fwd`` / ``ssd_chunk_fwd`` on CUDA tensors
+    launch their kernel once and give the bare wrapper's result bit for bit;
+    on fake CUDA tensors they launch nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32).to(
+        cuda_device, torch.bfloat16) for s in ((2, 128, 1, 8, 64), (2, 128, 1, 64),
+                                               (2, 128, 1, 64)))
+    x, bm, cm = (torch.as_tensor(rng.standard_normal(s), dtype=torch.float32, device=cuda_device)
+                 for s in ((2, 256, 4, 32), (2, 256, 16), (2, 256, 16)))
+    da = -torch.as_tensor(rng.random((2, 256, 4)), dtype=torch.float32, device=cuda_device)
+    before = flash_kernel.launches, ssd_kernel.launches
+    out = torch.ops.repro_torch.flash_fwd(q, k, v, True, 0)
+    outs = torch.ops.repro_torch.ssd_chunk_fwd(x, bm, cm, da, 64)
+    assert (flash_kernel.launches, ssd_kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, flash_kernel.flash_attention_fwd(q, k, v, causal=True))
+    for got, want in zip(outs, ssd_kernel.ssd_chunk_fwd(x, bm, cm, da, chunk=64)):
+        assert torch.equal(got, want)
+    before = flash_kernel.launches, ssd_kernel.launches
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fq, fk = torch.empty_like(q), torch.empty_like(k)
+        assert ops.flash_attention(fq, fk, fk).shape == q.shape
+        fx, fb, fd = torch.empty_like(x), torch.empty_like(bm), torch.empty_like(da)
+        assert ops.ssd_chunks(fx, fb, fb, fd, 64)[0].shape == x.shape
+    assert (flash_kernel.launches, ssd_kernel.launches) == before

@@ -140,7 +140,7 @@ def test_importing_the_port_leaves_jax_unloaded():
         "repro_torch.core.lifecycle, repro_torch.api.scenario, repro_torch.api.quasidynamic, "
         "repro_torch.core.baselines, repro_torch.core.placement, repro_torch.core.fleet, "
         "repro_torch.serve.fleet, repro_torch.launch.mesh, repro_torch.launch.specs, "
-        "repro_torch.launch.traffic, repro_torch.sharding.rules; "
+        "repro_torch.launch.traffic, repro_torch.sharding.rules, repro_torch.launch.dryrun; "
         "repro_torch.configs.registry(); "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')); "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -153,7 +153,8 @@ def test_importing_the_port_leaves_jax_unloaded():
 
 MESH_MODULES = ("launch/mesh.py", "launch/specs.py", "launch/traffic.py",
                 "sharding/rules.py", "sharding/__init__.py", "launch/train.py",
-                "train/step.py", "train/optimizer.py", "train/checkpoint.py", "train/loop.py")
+                "train/step.py", "train/optimizer.py", "train/checkpoint.py", "train/loop.py",
+                "launch/dryrun.py")
 # The sharded train step's code: a failure on a rank fails the run, so none of
 # it catches an exception (no fallback to one device or to the plain route).
 MESH_TRAIN_CODE = ("models/layers.py", "models/model.py", "models/moe.py", "models/mamba.py",

@@ -571,3 +571,46 @@ def mesh_loop_cases(rank, world, ckpt_dir, one_device_ckpt):
     except RuntimeError as e:
         out["production_error"] = str(e)
     return out
+
+
+# ----------------------------------------------------------------------------
+# The dry-run's collectives against a real group (tests/test_torch_dryrun_cells.py)
+# ----------------------------------------------------------------------------
+DRYRUN_STEP = ("gemma-2b", 4, 32)  # reduced arch, B, S of the (2, 2) train step
+
+
+def dryrun_step(cfg, mesh, device="cpu"):
+    """The reduced train step of DRYRUN_STEP on ``mesh``: (step, its
+    arguments (the LM placed by the sharding rules, AdamW's state, a batch of
+    zero tokens), the LM), made under whatever tensor mode is active."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.models.model import LM
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.step import make_train_step
+
+    _, B, S = DRYRUN_STEP
+    lm = LM(cfg, device, torch.float32)
+    interop.place_params(lm, cfg, mesh, pure_dp=cfg.pure_dp)
+    opt = adamw()
+    batch = {name: torch.zeros((B, S), dtype=torch.int32, device=device)
+             for name in ("tokens", "labels")}
+    step = make_train_step(cfg, make_runtime(cfg, mesh, torch.float32), opt)
+    return step, (lm, opt.init(dict(lm.named_parameters())), batch), lm
+
+
+def dryrun_gloo_collectives(rank, world):
+    """DRYRUN_STEP's step on a (2, 2) mesh of real gloo ranks: the c10d
+    collectives this rank issued ({name: [calls, result bytes]}, the
+    dry-run's ``recording_collectives``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import recording_collectives
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    cfg = get_config(DRYRUN_STEP[0]).reduced()
+    step, args, _ = dryrun_step(cfg, make_smoke_mesh(2, 2, device_type="cpu"))
+    with recording_collectives() as calls:
+        step(*args)
+    return calls
