@@ -149,7 +149,13 @@ is non-zero:
                against its float32 ones (the bf16 backward's rounding) beside
                it; step times, tokens/s, peak memory, and from a profiled 7th
                step the device busy time and the flash forward's and
-               backward's share of it.
+               backward's share of it. The config's remat policy ("dots":
+               the products without batch dims kept, the rest recomputed);
+               the same microbatch under "full" within 1e-5 relative in the
+               loss and 1e-3 in the gradients' global relative L2 gap; then
+               two "full" steps and a profiled third, their step time, busy
+               time, kernels, launches (144) and peak printed beside the
+               "dots" steps'.
  16. mamba-train — mamba2-130m at full width, B 8 x S 512 (two chunks of
                256) in one microbatch, the same checks and numbers with 48 ssd
                launches a step.
@@ -276,7 +282,9 @@ is non-zero:
                against the local mode at atol 1e-5 / rtol 1e-4 dropless, and
                at cf 1.25 finite with the dropped share; (c) gemma-2b at full
                width and depth: a cache-filling prefill of 4 x 512 in the 2d
-               layout (sequence-mode flash, the causal offset), then 16
+               layout with the residual split over S (the config's sequence
+               parallelism: each rank's query rows, the causal offset; its
+               collectives by kind printed), then 16
                teacher-forced decode steps in the serving layout with T of
                the cache split over 'model', logits within 3e-2 of max
                |logit|, 18 flash launches a rank, the kernel at the rank's
@@ -305,7 +313,9 @@ is non-zero:
                took 120-190 s at 4 layers and 143-152 s at 6; since, 52 s
                at 4 in the script, 77-86 s alone on a slower host),
                float32 weights and
-               AdamW, B 4 x S 256 in 2 microbatches: one float32-compute step
+               AdamW, B 4 x S 256 in 2 microbatches, the residual split
+               over S between the layers (the config's default; the step's
+               collectives by kind printed): one float32-compute step
                against a single-rank step on the card with the same seeded
                weights and batch (loss rtol 1e-4, grad_norm rtol 1e-3, each
                leaf's gradient by digests: its L2 norm and its dot with a
@@ -333,7 +343,7 @@ is non-zero:
                flash operator in gemma-2b's prefill trace, the SSD operator
                in mamba2-130m's, neither in gemma-2b's decode step (its
                attention over the cache is plain torch); (b) phases 15's and
-               16's exact train steps traced with no mesh from where
+               16's exact train steps (remat "dots") traced with no mesh from where
                train_full resets the peak: the flash / SSD operator calls
                equal to the launches those phases counted a step, and
                MemTracker's peak over one step within [0.8, 1.25] of the
@@ -432,6 +442,7 @@ CODE_LIMIT_S = 120.0
 # cases besides the training shape: tests/test_kernels.py's (B, Sq, Skv, KV,
 # G, hd, causal)
 TRAIN_STEPS = 6
+REMAT_LOSS_BAR, REMAT_GRAD_BAR = 1e-5, 1e-3  # "full" against "dots": loss rel, grad rel L2
 GEMMA_TRAIN = (8, 256)
 MAMBA_TRAIN = (8, 512)
 FLASH_TRAIN = (2, 256, 256, 1, 8, 256, True)
@@ -1562,18 +1573,20 @@ def grad_gap(lm, cfg, batch, want_launches):
     which any change of the forward's last bits decorrelates). Returns
     {"loss_rel_gap_vs_plain", "grad_rel_l2_gap_vs_plain" (bf16),
     "grad_rel_l2_gap_vs_plain_f32", "plain_grad_rel_l2_gap_bf16_vs_f32"};
-    the auto bf16 run's (flash, ssd)
+    and the kernels' bf16 run under remat policy "full" against the config's
+    ("dots"): "full_vs_dots_loss_rel_gap", "full_vs_dots_grad_rel_l2_gap".
+    The auto bf16 runs' (flash, ssd)
     launches must be ``want_launches``. Relative L2 gaps are global: the
     norm of the difference over the norm of the second's gradient."""
     from repro_torch.kernels import flash_attention, ssd
     from repro_torch.models.layers import Runtime
     from repro_torch.models.model import lm_loss
 
-    def run(backend, dtype):
+    def run(backend, dtype, policy=cfg.remat_policy):
         lm.zero_grad(set_to_none=True)
         before = flash_attention.launches, ssd.launches
-        loss, _ = lm_loss(lm, cfg, Runtime("cuda", dtype, backend), batch["tokens"],
-                          batch["labels"])
+        loss, _ = lm_loss(lm, dataclasses.replace(cfg, remat_policy=policy),
+                          Runtime("cuda", dtype, backend), batch["tokens"], batch["labels"])
         loss.backward()
         launches = flash_attention.launches - before[0], ssd.launches - before[1]
         if (backend, dtype) == ("auto", torch.bfloat16) and launches != want_launches:
@@ -1591,7 +1604,11 @@ def grad_gap(lm, cfg, batch, want_launches):
     loss_auto, auto = run("auto", torch.bfloat16)
     out = {"loss_rel_gap_vs_plain": abs(loss_auto - loss_ref) / abs(loss_ref),
            "grad_rel_l2_gap_vs_plain": rel_l2(auto, ref_bf16)}
-    del auto
+    # the same microbatch under the "full" policy against the config's "dots"
+    loss_full, full = run("auto", torch.bfloat16, "full")
+    out["full_vs_dots_loss_rel_gap"] = abs(loss_full - loss_auto) / abs(loss_auto)
+    out["full_vs_dots_grad_rel_l2_gap"] = rel_l2(full, auto)
+    del auto, full
     _, ref_f32 = run("reference", torch.float32)
     out["plain_grad_rel_l2_gap_bf16_vs_f32"] = rel_l2(ref_bf16, ref_f32)
     del ref_bf16
@@ -1641,6 +1658,9 @@ def train_full(arch, batch_size, seq_len, phase):
     gaps = grad_gap(lm, cfg, device_batch(0, batch_size // mb), tuple(n // mb for n in per_step))
     if not (gaps["loss_rel_gap_vs_plain"] < 1e-2 and gaps["grad_rel_l2_gap_vs_plain"] < 3e-2):
         raise AssertionError(f"{arch}: kernel route off the plain forwards: {gaps}")
+    if not (gaps["full_vs_dots_loss_rel_gap"] <= REMAT_LOSS_BAR
+            and gaps["full_vs_dots_grad_rel_l2_gap"] <= REMAT_GRAD_BAR):
+        raise AssertionError(f"{arch}: remat policy 'full' off 'dots': {gaps}")
     free_card()
 
     opt = for_config(cfg)
@@ -1666,8 +1686,13 @@ def train_full(arch, batch_size, seq_len, phase):
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"{arch}: losses {losses}")
     batch = device_batch(TRAIN_STEPS)
+    t0 = time.perf_counter()
     prof = profile_step(lambda: step_fn(lm, state, batch))
+    prof["profiled_step_s"] = time.perf_counter() - t0
     steady_ms = float(np.median(step_ms[1:]))
+    t0 = time.perf_counter()
+    full = full_policy_steps(cfg, lm, state, opt, device_batch, per_step)
+    full["s"] = time.perf_counter() - t0
     shares = {}
     for kname, fwd, bwd in (("flash", "flash_fwd_device_ms", "flash_bwd_device_ms"),
                             ("ssd", "ssd_fwd_device_ms", "ssd_bwd_device_ms")):
@@ -1680,9 +1705,69 @@ def train_full(arch, batch_size, seq_len, phase):
         steady_step_ms=steady_ms, tokens_per_s=batch_size * seq_len / (steady_ms / 1e3),
         flash_launches_per_step=per_step[0], ssd_launches_per_step=per_step[1],
         max_memory_allocated_gb=peak / 1e9, **gaps, **prof, **shares,
+        remat={"dots": {"steady_step_ms": steady_ms, "device_busy_ms": prof["device_busy_ms"],
+                        "device_kernels": prof["device_kernels"],
+                        "flash_launches_per_step": per_step[0],
+                        "ssd_launches_per_step": per_step[1],
+                        "max_memory_allocated_gb": peak / 1e9},
+               "full": full},
         phase_wall_s=time.perf_counter() - t_phase)
     return {"launches": launches, "launches_per_step": per_step, "steady_step_ms": steady_ms,
-            "peak_gb": peak / 1e9, "peak_bytes": peak, **gaps, **prof}
+            "peak_gb": peak / 1e9, "peak_bytes": peak, "full_policy": full, **gaps, **prof}
+
+
+def full_policy_steps(cfg, lm, state, opt, device_batch, per_step):
+    """Two train steps (and a profiled third) of ``lm`` under remat policy
+    "full" after ``train_full``'s steps under the config's "dots": the
+    numbers ``train_full`` prints beside the "dots" steps' (step time, device
+    busy time and kernels, launches a step, peak memory from a reset)."""
+    from repro_torch.kernels import flash_attention, ssd
+    from repro_torch.models.layers import Runtime
+    from repro_torch.train.step import make_train_step
+
+    step_fn = make_train_step(dataclasses.replace(cfg, remat_policy="full"),
+                              Runtime("cuda", torch.bfloat16, "auto"), opt)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    for step in range(TRAIN_STEPS + 1, TRAIN_STEPS + 3):
+        batch = device_batch(step)
+        before = flash_attention.launches, ssd.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lm, state, metrics = step_fn(lm, state, batch)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        got = flash_attention.launches - before[0], ssd.launches - before[1]
+        if got != per_step or not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{cfg.name} under 'full': (flash, ssd) launches {got} != "
+                                 f"{per_step}, loss {float(metrics['loss'])}")
+    peak = torch.cuda.max_memory_allocated()
+    batch = device_batch(TRAIN_STEPS + 3)
+    t0 = time.perf_counter()
+    busy_ms, kernels = device_busy(lambda: step_fn(lm, state, batch))
+    return {"step_ms": step_ms, "steady_step_ms": float(np.median(step_ms)),
+            "device_busy_ms": busy_ms, "device_kernels": kernels,
+            "flash_launches_per_step": per_step[0], "ssd_launches_per_step": per_step[1],
+            "max_memory_allocated_gb": peak / 1e9,
+            "profiled_step_s": time.perf_counter() - t0}
+
+
+def device_busy(fn):
+    """(The device's busy ms, its kernels) in one call of ``fn``, from a
+    torch.profiler trace of the device alone (no host operators to
+    process)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = (ops.FLASH_BWD_RANGE, ops.SSD_BWD_RANGE)  # ranges, not kernels (profile_step)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in spans]
+    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
 
 
 SIM_M = 64  # the allocator's largest instance, simulated at the reference's defaults
@@ -3064,6 +3149,11 @@ def c10d_calls():
             setattr(dist, name, fn)
 
 
+def by_kind(counts):
+    """``c10d_calls``' counts as {name: {"calls", "gb"}}."""
+    return {k: {"calls": n, "gb": b / 1e9} for k, (n, b) in counts.items()}
+
+
 @contextlib.contextmanager
 def mesh_part(record, name, device):
     """Times one part on this rank, counts its collectives (``c10d_calls``'
@@ -3080,7 +3170,7 @@ def mesh_part(record, name, device):
     if cuda:
         torch.cuda.synchronize()
     out["s"] = time.perf_counter() - t0
-    out["collectives"] = {k: {"calls": n, "gb": b / 1e9} for k, (n, b) in comm.items()}
+    out["collectives"] = by_kind(comm)
     if cuda:
         out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3276,6 +3366,7 @@ def part_gemma(out, ctx):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention
     from repro_torch.launch.specs import make_runtime
+    from repro_torch.models.layers import seq_runtime
     from repro_torch.models.model import apply_decode, init_cache
 
     cfg, ref, device, mesh = mesh_config(FULL_ARCH, ctx["reduced"]), ctx["refs"]["gemma"], \
@@ -3286,9 +3377,14 @@ def part_gemma(out, ctx):
     interop.place_params(lm, cfg, mesh)
     flash_attention.launches = 0
     caches = init_cache(cfg, rt, B, S + steps, dtype=torch.bfloat16)
+    out["seq_split"] = seq_runtime(rt, S).seq_split  # the residual split over S (the default)
+    if not out["seq_split"]:
+        raise AssertionError("mesh gemma: the prefill's residual is not split over S")
     clock = Clock(device)
-    lg, caches = apply_decode(lm, cfg, rt, torch.as_tensor(ref["prompts"]), caches, 0)
+    with c10d_calls() as comm:
+        lg, caches = apply_decode(lm, cfg, rt, torch.as_tensor(ref["prompts"]), caches, 0)
     out["prefill_s"] = clock()
+    out["prefill_collectives"] = by_kind(comm)
     out["flash_launches"] = flash_attention.launches
     out["prefill_err"] = logits_err(last_logits(lg), ref["logits"][0], "gemma prefill")
     if device == "cuda" and out["flash_launches"] != cfg.n_layers:
@@ -3673,6 +3769,7 @@ def part_train_gemma(out, ctx):
     from repro_torch import interop
     from repro_torch.kernels import flash_attention
     from repro_torch.launch.specs import make_runtime
+    from repro_torch.models.layers import seq_runtime
     from repro_torch.train.optimizer import adamw
     from repro_torch.train.step import make_train_step
 
@@ -3684,8 +3781,14 @@ def part_train_gemma(out, ctx):
     out["init_s"] = clock()
     batch = mesh_train_batch(cfg, B, S, device)
     flash_attention.launches = 0
-    loss, gnorm, digests, _ = one_step(lm, cfg, make_runtime(cfg, mesh, torch.float32), batch, mb)
+    rt = make_runtime(cfg, mesh, torch.float32)
+    out["seq_split"] = seq_runtime(rt, S).seq_split  # the residual split over S (the default)
+    if not out["seq_split"]:
+        raise AssertionError("mesh-train gemma: the residual is not split over S")
+    with c10d_calls() as comm:
+        loss, gnorm, digests, _ = one_step(lm, cfg, rt, batch, mb)
     out["f32_step_s"] = clock()
+    out["f32_step_collectives"] = by_kind(comm)
     out["flash_launches_f32_step"] = flash_attention.launches
     check_one_step(out, "gemma", (loss, gnorm, digests), ctx["refs"]["gemma"])
     opt = adamw()

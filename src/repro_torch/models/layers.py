@@ -20,12 +20,17 @@ layout its computation takes (``local_weight``, the reference's
 issuing on the model axis's process group the collectives that GSPMD would:
 all-reduces of partial products, all-gathers of sequence blocks, the max and
 sum of the flash-decode softmax. Activations are local tensors: the rank's
-batch rows (the data axes, where they divide the batch), whole over the
-model axis between blocks. The flash and SSD kernels run on the local
-shards and never see a ``DTensor``.
+batch rows (the data axes, where they divide the batch). Between blocks the
+residual stream is whole over the model axis, or under the reference's
+sequence parallelism (``Runtime.seq_split``) the rank's block of S / n rows:
+a block then gathers S where its split work needs the whole sequence and
+reduce-scatters its partial sums back to the rank's rows (Megatron's pairs).
+The flash and SSD kernels run on the local shards and never see a
+``DTensor``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 from typing import Any
@@ -54,9 +59,12 @@ class Runtime:
     None: one device), ``data_axes``, ``model_axis`` (None: pure data
     parallel, no tensor axis) and ``seq_shard_acts`` are the reference's
     (``launch.specs.make_runtime`` sets them from a config).
-    ``seq_shard_acts`` only describes the runtime: the port's blocks keep
-    the residual stream whole over the model axis (ROADMAP's deviations), so
-    it changes nothing the model computes."""
+    ``seq_shard_acts`` asks for the reference's sequence-parallel residual
+    stream: the model's layers run with ``seq_split`` set where the
+    reference's ``residual_constrain`` shards S (``seq_runtime``), and a block
+    given a runtime with ``seq_split`` takes and returns the rank's block of
+    S / n rows of the residual (``residual_constrain``) instead of all S.
+    The values are the same either way."""
 
     device: Any = None
     compute_dtype: torch.dtype = torch.bfloat16
@@ -65,6 +73,7 @@ class Runtime:
     data_axes: tuple = ("data",)
     model_axis: str | None = "model"
     seq_shard_acts: bool = False
+    seq_split: bool = False
 
     def __post_init__(self):
         device = self.device
@@ -150,6 +159,17 @@ def _all_gather(t, group, n: int, dim: int):
     return torch.cat(out.unbind(0), dim=dim)
 
 
+def _reduce_scatter(t, group, n: int, dim: int):
+    """This rank's block (of ``n`` along ``dim``, in group rank order) of the
+    sum of ``t`` over ``group``, summed in float32 for narrower floats and
+    returned in ``t``'s dtype."""
+    wire = F32 if t.dtype in (torch.bfloat16, torch.float16) else t.dtype
+    w = t.movedim(dim, 0).to(wire, memory_format=torch.contiguous_format)  # one copy
+    out = torch.empty((w.shape[0] // n, *w.shape[1:]), dtype=wire, device=w.device)
+    dist.reduce_scatter_tensor(out, w, group=group)
+    return out.movedim(0, dim).to(t.dtype)
+
+
 def _all_to_all(t, group):
     """Tiled all-to-all: block i of ``t``'s dim 0 goes to rank i of ``group``,
     and block i of the result came from rank i."""
@@ -189,6 +209,39 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.chunk(ctx.n, dim=ctx.dim)[ctx.j], None, None, None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _all_gather(y, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):  # the ranks' partial gradients, summed to each rank's block
+        return _reduce_scatter(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group, n, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return _reduce_scatter(y, group, ctx.n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.group, ctx.n, ctx.dim), None, None, None
+
+
+class _Keep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, group, n, j, dim):
+        ctx.group, ctx.n, ctx.dim = group, n, dim
+        return y.chunk(n, dim=dim)[j].clone(memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):  # each rank's block of the gradient, whole on every rank
+        return _all_gather(g, ctx.group, ctx.n, ctx.dim), None, None, None, None
 
 
 class _Enter(torch.autograd.Function):
@@ -249,6 +302,52 @@ def model_all_to_all(t, runtime: Runtime):
     """Tiled all-to-all over the model axis (``_all_to_all``); its backward
     is the same exchange of the gradient."""
     return _AllToAll.apply(t, _model_group(runtime))
+
+
+def seq_runtime(runtime: Runtime, seq: int) -> Runtime:
+    """``runtime`` with ``seq_split`` set where the reference's
+    ``residual_constrain`` shards the residual of a sequence of ``seq``
+    positions over the model axis: ``seq_shard_acts``, a model axis of n >
+    1, ``seq % n == 0`` and ``seq >= n`` (so never at a decode step's S =
+    1, nor under pure data parallelism)."""
+    n = runtime.model_axis_size
+    split = bool(runtime.seq_shard_acts and runtime.model_axis is not None and n > 1
+                 and seq % n == 0 and seq >= n)
+    return runtime if split == runtime.seq_split else dataclasses.replace(runtime,
+                                                                          seq_split=split)
+
+
+def residual_constrain(x, runtime: Runtime):
+    """The residual stream (B, S, d), whole on every rank of the model axis
+    (the embedding's output, a Mamba or MoE block's), cut to this rank's
+    block of S rows where ``runtime.seq_split`` says the layers carry it so
+    (``seq_runtime``); the backward gathers the blocks' gradients, whole on
+    every rank again. A layer keeps the layout: its blocks add their outputs
+    to the rank's rows."""
+    if not runtime.seq_split:
+        return x
+    return _Keep.apply(x, _model_group(runtime), runtime.model_axis_size, model_rank(runtime), 1)
+
+
+def seq_gather(x, runtime: Runtime):
+    """The whole sequence (dim 1) from the ranks' blocks of the split
+    residual, as the input of work the model ranks split (their heads, d_ff
+    block or query rows): the backward reduce-scatters the ranks' partial
+    gradients to each rank's block (Megatron's g-bar, in place of
+    ``enter_split``'s f)."""
+    return _SeqGather.apply(x, _model_group(runtime), runtime.model_axis_size, 1)
+
+
+def model_sum(y, runtime: Runtime):
+    """The sum over the model axis of the ranks' partial results ``y`` (B, S,
+    ...) of split work: all-reduced (``model_all_reduce``), or where the
+    residual is split over S (``runtime.seq_split``) reduce-scattered to
+    this rank's block of S, whose backward gathers the blocks' gradients."""
+    if runtime.model_axis_size <= 1:
+        return y
+    if runtime.seq_split:
+        return _SeqScatter.apply(y, _model_group(runtime), runtime.model_axis_size, 1)
+    return model_all_reduce(y, runtime)
 
 
 def batch_mean(t, runtime: Runtime, batch: int):
@@ -754,11 +853,77 @@ def held_weights(budget: float):
         _HELD = None
 
 
-def _contract(x, w, nc: int):
-    """x (..., *w.shape[:nc]) times w over those nc dims -> (..., *w.shape[nc:])."""
-    lead = x.shape[:x.dim() - nc]
+# ----------------------------------------------------------------------------
+# Products without batch dims, and the outputs the "dots" remat policy keeps
+# ----------------------------------------------------------------------------
+class KeptProducts:
+    """The outputs of one layer's products without batch dims (``dot``)
+    under the "dots" remat policy, the reference's
+    ``checkpoint_dots_with_no_batch_dims``: recorded in the forward and
+    handed back in order when the backward recomputes the layer, which then
+    multiplies nothing again. ``contexts()`` gives a checkpoint's two
+    contexts (its ``context_fn``'s result, ``model._remat_policy``)."""
+
+    def __init__(self):
+        self.outs = collections.deque()
+        self.replay = False
+
+    @contextlib.contextmanager
+    def _open(self, replay: bool):
+        global _KEPT
+        prev, _KEPT, self.replay = _KEPT, self, replay
+        try:
+            yield
+        finally:
+            _KEPT = prev
+
+    def contexts(self):
+        return self._open(False), self._open(True)
+
+
+_KEPT: KeptProducts | None = None  # the "dots" checkpoint region being run
+
+
+def _mm(x, w, nc: int):
     k = math.prod(w.shape[:nc])
+    lead = x.shape[:x.dim() - nc]
     return (x.reshape(-1, k) @ w.reshape(k, -1)).reshape(*lead, *w.shape[nc:])
+
+
+class _KeptProduct(torch.autograd.Function):
+    """``_mm(x, w, nc)`` in a layer under the "dots" policy: the forward
+    multiplies and keeps the output, the recompute hands the kept output
+    back; the backward is the ``mm``'s (the same two products autograd
+    takes)."""
+
+    @staticmethod
+    def forward(ctx, x, w, nc, kept):
+        ctx.nc = nc
+        ctx.save_for_backward(x, w)
+        if kept is None:
+            kept = _mm(x, w, nc)
+            _KEPT.outs.append(kept.detach())
+        return kept
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        k = math.prod(w.shape[:ctx.nc])
+        g2 = g.reshape(-1, w.numel() // k)
+        gx = (g2 @ w.reshape(k, -1).T).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        gw = (x.reshape(-1, k).T @ g2).reshape(w.shape) if ctx.needs_input_grad[1] else None
+        return gx, gw, None, None
+
+
+def dot(x, w, nc: int = 1):
+    """x (..., *w.shape[:nc]) times w over those nc dims -> (..., *w.shape[nc:]):
+    a product without batch dims, one ``mm``. In a layer under the "dots"
+    remat policy (``KeptProducts``) its output is kept (``_KeptProduct``),
+    and the backward's recompute takes it back instead of multiplying
+    again."""
+    if _KEPT is None or not torch.is_grad_enabled():
+        return _mm(x, w, nc)
+    return _KeptProduct.apply(x, w, nc, _KEPT.outs.popleft() if _KEPT.replay else None)
 
 
 def _partial_is_cheaper(x, w, nc: int, n: int) -> bool:
@@ -795,7 +960,7 @@ def matmul(x, w, runtime: Runtime, nc: int = 1, out_shard: int | None = None,
         size = w.shape[c] // n
         xs = (x if entered else enter_split(x, runtime)).narrow(x.dim() - nc + c,
                                                               model_rank(runtime) * size, size)
-        y = model_all_reduce(_contract(xs, local_weight(w, runtime, c, dt), nc), runtime,
+        y = model_all_reduce(dot(xs, local_weight(w, runtime, c, dt), nc), runtime,
                              sum_backward=entered or out_shard is not None)
         if out_shard is not None:
             y = y.chunk(n, dim=y.dim() - n_out + out_shard - nc)[model_rank(runtime)]
@@ -803,7 +968,7 @@ def matmul(x, w, runtime: Runtime, nc: int = 1, out_shard: int | None = None,
     if out_shard is not None and not entered:
         x = enter_split(x, runtime)
     wl = local_weight(w, runtime, out_shard, dt, summed=entered and out_shard is None)
-    return _contract(x, wl, nc)
+    return dot(x, wl, nc)
 
 
 def matmuls(x, ws, runtime: Runtime, out_shard: int | None = None, entered: bool = False):
@@ -820,13 +985,13 @@ def matmuls(x, ws, runtime: Runtime, out_shard: int | None = None, entered: bool
             x, entered = enter_split(x, runtime), True
         if any(partial):
             return [matmul(x, w, runtime, 1, out_shard, entered) for w in ws]
-        return [_contract(x, wl, 1) for wl in local_weights(
+        return [dot(x, wl, 1) for wl in local_weights(
             [(w, out_shard, runtime.compute_dtype, entered and out_shard is None) for w in ws],
             runtime)]
     dt, n, j = runtime.compute_dtype, runtime.model_axis_size, model_rank(runtime)
     size = ws[0].shape[0] // n
     xs = (x if entered else enter_split(x, runtime)).narrow(x.dim() - 1, j * size, size)
-    parts = [_contract(xs, local_weight(w, runtime, 0, dt), 1) for w in ws]
+    parts = [dot(xs, local_weight(w, runtime, 0, dt), 1) for w in ws]
     flat = model_all_reduce(torch.cat([p.reshape(*x.shape[:-1], -1) for p in parts], -1),
                             runtime, sum_backward=entered or out_shard is not None)
     sizes = [math.prod(p.shape[x.dim() - 1:]) for p in parts]
@@ -839,9 +1004,10 @@ def matmuls(x, ws, runtime: Runtime, out_shard: int | None = None, entered: bool
 def matmul_split(h, w, runtime: Runtime, c: int, nc: int = 1):
     """``h @ w`` where ``h`` holds this rank's block of contraction dim ``c``
     (of ``w``'s first ``nc``) of the model axis: the local product of the
-    matching block of ``w``, summed over the axis."""
+    matching block of ``w``, summed over the axis (``model_sum``: to the
+    rank's block of S where the residual is split)."""
     wl = local_weight(w, runtime, c, runtime.compute_dtype)
-    return model_all_reduce(_contract(h, wl, nc), runtime)
+    return model_sum(dot(h, wl, nc), runtime)
 
 
 def as_global(local, runtime: Runtime, spec: tuple, shape):
@@ -896,9 +1062,12 @@ def whole(w):
 
 def apply_norm(p: Norm, x, cfg: ModelConfig, eps: float = 1e-6, runtime: Runtime | None = None):
     """The block's norm in float32. On a mesh (``runtime``) its weight comes
-    through ``local_weight`` (every rank uses it alike)."""
+    through ``local_weight``: every rank uses it alike, or with the residual
+    split over S (``runtime.seq_split``) on its own rows, and then its
+    gradient is summed over the model axis."""
     xf = x.to(F32)
-    w = (whole(p.w) if runtime is None else local_weight(p.w, runtime)).to(F32)
+    w = (whole(p.w) if runtime is None else
+         local_weight(p.w, runtime, summed=runtime.seq_split)).to(F32)
     if cfg.norm_plus_one:
         w = 1.0 + w
     if cfg.norm == "layernorm":
@@ -960,9 +1129,9 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
     dt = runtime.compute_dtype
     kv_src = memory if memory is not None else x
 
-    q = torch.einsum("bsd,dnh->bsnh", x, p.wq.to(dt))
-    k = torch.einsum("bsd,dnh->bsnh", kv_src, p.wk.to(dt))
-    v = torch.einsum("bsd,dnh->bsnh", kv_src, p.wv.to(dt))
+    q = dot(x, p.wq.to(dt))
+    k = dot(kv_src, p.wk.to(dt))
+    v = dot(kv_src, p.wv.to(dt))
     if cfg.qkv_bias:
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
@@ -995,7 +1164,7 @@ def apply_attention(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
                                     backend=runtime.attn_backend)
         out = out5.reshape(B, S, cfg.n_heads, hd).to(dt)
 
-    y = torch.einsum("bsnh,nhd->bsd", out, p.wo.to(dt))
+    y = dot(out, p.wo.to(dt), 2)
     return y, new_cache
 
 
@@ -1058,6 +1227,13 @@ def _attention_mesh(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
               it, each group's G query heads): each rank attends with its
               heads and the output projections' partial sums are reduced.
 
+    With the residual split over S (``runtime.seq_split``) ``x`` and the
+    output are the rank's block of S / n rows. In sequence mode (and for a
+    cross-attention whose heads do not split) the block is the rank's query
+    rows and the keys come from the gathered sequence (``seq_gather``), and
+    the output needs no gather; in heads mode ``x`` is gathered at entry and
+    the partial sums are reduce-scattered (``model_sum``).
+
     A decode step (``cache`` with S == 1) projects q/k/v whole, writes k/v
     into the owner shard of the cache, whose T may be split over the model
     axis (``cache["t0"]`` its first position, ``cache["t_shards"]`` the
@@ -1086,7 +1262,7 @@ def _attention_mesh(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
                          summed=entered and out_shard is None)
 
     bq, bk, bv = ((p.bq, p.bk, p.bv) if cfg.qkv_bias else (None, None, None))
-    if cache is not None and S == 1:  # self-attention only: cross-attention keeps no cache
+    if cache is not None and S == 1 and not runtime.seq_split:  # self-attention only
         q, k, v = (y if b is None else y + _bias(b, runtime)
                    for y, b in zip(matmuls(x, (p.wq, p.wk, p.wv), runtime), (bq, bk, bv)))
         if rope:
@@ -1103,28 +1279,45 @@ def _attention_mesh(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
 
     mode = cfg.attn_shard_mode(n)
     flash = dict(causal=causal and memory is None, backend=runtime.attn_backend)
-    if n > 1 and (mode == "sequence" and memory is None and S % n == 0
-                  or KV % n == 0 or G % n == 0):
+    sp = runtime.seq_split  # x holds this rank's block of S / n rows
+    by_heads = n > 1 and (KV % n == 0 or G % n == 0)
+    if sp:
+        by_rows = (mode == "sequence" and memory is None) or not by_heads
+    else:
+        by_rows = n > 1 and mode == "sequence" and memory is None and S % n == 0
+    if sp and not by_rows:
+        # the heads split over whole sequences: x gathered, its gradient's
+        # partial sums reduce-scattered back (and the output's partial sums
+        # reduce-scattered to the rank's rows, ``model_sum``)
+        x = seq_gather(x, runtime)
+        S = x.shape[1]
+        kv_src = x if memory is None else enter_split(memory, runtime)
+    elif by_rows or by_heads:
         # the model ranks split the work: x (and memory) enter it through f,
         # and the weights every rank uses whole get their gradients summed
-        x = enter_split(x, runtime)
-        kv_src = x if memory is None else enter_split(memory, runtime)
-    if n > 1 and mode == "sequence" and memory is None and S % n == 0:
-        Sb = S // n
+        if sp:  # x is the rank's query rows; the keys come from the whole sequence
+            kv_src = seq_gather(x, runtime) if memory is None else enter_split(memory, runtime)
+        else:
+            x = enter_split(x, runtime)
+            kv_src = x if memory is None else enter_split(memory, runtime)
+    if by_rows:
+        Sb = x.shape[1] if sp else S // n
         r0 = j * Sb
         ws = [w for w in (p.wq, p.wk, p.wv, p.wo, bq, bk, bv) if w is not None]
         wq, wk, wv, wo, *bs = local_weights([(w, None, dt, True) for w in ws], runtime)
-        q = torch.einsum("bsd,dnh->bsnh", x[:, r0:r0 + Sb], wq)
-        k = torch.einsum("bsd,dnh->bsnh", x, wk)
-        v = torch.einsum("bsd,dnh->bsnh", x, wv)
+        q = dot(x if sp else x[:, r0:r0 + Sb], wq)
+        k = dot(kv_src, wk)
+        v = dot(kv_src, wv)
         if bs:
             q, k, v = q + bs[0], k + bs[1], v + bs[2]
         if rope:
             q = rope_embed(q, positions[..., r0:r0 + Sb], cfg.rope_theta)
             k = rope_embed(k, positions, cfg.rope_theta)
-        out = kops.flash_attention(q.reshape(B, Sb, KV, G, hd), k, v, offset=r0, **flash)
-        y = model_all_gather(torch.einsum("bsnh,nhd->bsd", out.reshape(B, Sb, -1, hd), wo),
-                             runtime, dim=1)
+        out = kops.flash_attention(q.reshape(B, Sb, KV, G, hd), k, v,
+                                   offset=r0 if memory is None else 0, **flash)
+        y = dot(out.reshape(B, Sb, -1, hd), wo, 2)
+        if not sp:  # the query blocks' outputs, whole on every rank
+            y = model_all_gather(y, runtime, dim=1)
         k_all, v_all = k, v
     elif n > 1 and KV % n == 0:  # this rank's KV / n groups of heads
         if memory is None:
@@ -1146,7 +1339,7 @@ def _attention_mesh(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
         gs = slice(j * (G // n), (j + 1) * (G // n))  # this rank's query heads of each group
         wq, wo, *bs = local_weights([(w, None, dt, True) for w in (p.wq, p.wo, bq)
                                      if w is not None], runtime)
-        q = torch.einsum("bsd,dkgh->bskgh", x, wq.reshape(-1, KV, G, hd)[:, :, gs])
+        q = dot(x, wq.reshape(-1, KV, G, hd)[:, :, gs])
         if bs:
             q = q + bs[0].reshape(KV, G, hd)[:, gs]
         k = project(kv_src, p.wk, bk, entered=True)
@@ -1155,8 +1348,7 @@ def _attention_mesh(p: Attention, x, cfg: ModelConfig, runtime: Runtime, *, posi
             q = rope_embed(q.reshape(B, S, -1, hd), positions, cfg.rope_theta)
             k = rope_embed(k, positions, cfg.rope_theta)
         out = kops.flash_attention(q.reshape(B, S, KV, G // n, hd), k, v, **flash)
-        y = model_all_reduce(torch.einsum("bskgh,kghd->bsd", out,
-                                          wo.reshape(KV, G, hd, -1)[:, gs]), runtime)
+        y = model_sum(dot(out, wo.reshape(KV, G, hd, -1)[:, gs], 3), runtime)
         k_all, v_all = k, v
     else:  # every rank computes the whole attention
         q = project(x, p.wq, bq)
@@ -1193,11 +1385,16 @@ def apply_mlp(p: MLP, x, cfg: ModelConfig, runtime: Runtime):
     model axis (the reference's ``up`` / ``h`` constraints): each rank
     computes its block of d_ff and the down projection's partial sums are
     reduced. ``x`` enters that split through ``enter_split`` (in
-    ``matmuls``)."""
+    ``matmuls``); with the residual split over S (``runtime.seq_split``) it
+    is gathered instead (``seq_gather``) and the partial sums are
+    reduce-scattered to the rank's rows (``model_sum``)."""
     dt = runtime.compute_dtype
     if runtime.mesh is not None:
         gated = cfg.act in ("swiglu", "geglu")
-        up, *gate = matmuls(x, (p.w_up, p.w_gate) if gated else (p.w_up,), runtime, out_shard=1)
+        sp = runtime.seq_split
+        up, *gate = matmuls(seq_gather(x, runtime) if sp else x,
+                            (p.w_up, p.w_gate) if gated else (p.w_up,), runtime, out_shard=1,
+                            entered=sp)
         if cfg.act == "swiglu":
             h = torch.nn.functional.silu(gate[0]) * up
         elif cfg.act == "geglu":
@@ -1205,11 +1402,11 @@ def apply_mlp(p: MLP, x, cfg: ModelConfig, runtime: Runtime):
         else:
             h = torch.relu(up)
         return matmul_split(h, p.w_down, runtime, 0)
-    up = x @ p.w_up.to(dt)
+    up = dot(x, p.w_up.to(dt))
     if cfg.act == "swiglu":
-        h = torch.nn.functional.silu(x @ p.w_gate.to(dt)) * up
+        h = torch.nn.functional.silu(dot(x, p.w_gate.to(dt))) * up
     elif cfg.act == "geglu":
-        h = torch.nn.functional.gelu(x @ p.w_gate.to(dt), approximate="tanh") * up
+        h = torch.nn.functional.gelu(dot(x, p.w_gate.to(dt)), approximate="tanh") * up
     else:
         h = torch.relu(up)
-    return h @ p.w_down.to(dt)
+    return dot(h, p.w_down.to(dt))

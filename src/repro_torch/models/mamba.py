@@ -15,10 +15,13 @@ reference splits the heads over the model axis, ``repro/models/mamba.py:162``;
 mamba2-130m, its one Mamba model that fits a card, is pure data parallel and
 has no model axis). The gathered weights' gradients are summed over the
 data axes (with pure data parallelism: 'data' and 'model') and come back
-in their storage layout (``layers.local_weight``).
+in their storage layout (``layers.local_weight``). Where the residual is
+split over S (``Runtime.seq_split``) the mixer gathers the sequence whole,
+runs as above, and keeps the rank's rows of its output.
 """
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import torch
@@ -27,7 +30,8 @@ from torch import nn
 
 from repro_torch.configs.base import MambaSpec, ModelConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import Runtime, _param, local_weights
+from repro_torch.models.layers import (Runtime, _param, dot, local_weights, model_all_gather,
+                                       residual_constrain)
 
 F32 = torch.float32
 
@@ -79,6 +83,11 @@ def apply_mamba(p: Mamba, x, cfg: ModelConfig, runtime: Runtime, *, cache=None,
     updated copies) and the same dict is returned. Prefill goes through
     ``ops.ssd_chunks`` with chunks of ``chunk`` positions and the backend
     ``runtime.attn_backend`` names."""
+    if runtime.seq_split:  # the scan needs the whole sequence: gathered, the rank's rows kept
+        y, cache = apply_mamba(p, model_all_gather(x, runtime, 1), cfg,
+                               dataclasses.replace(runtime, seq_split=False), cache=cache,
+                               chunk=chunk)
+        return residual_constrain(y, runtime), cache
     m = cfg.mamba or MambaSpec()
     d_in, nh, N, Pd = m.d_inner(cfg.d_model), m.n_heads(cfg.d_model), m.d_state, m.head_dim
     dt_c = runtime.compute_dtype
@@ -89,7 +98,7 @@ def apply_mamba(p: Mamba, x, cfg: ModelConfig, runtime: Runtime, *, cache=None,
         p = types.SimpleNamespace(**dict(zip((name for name, _ in named), local_weights(
             [(w, None, dt_c if name in cast else None, False) for name, w in named], runtime))))
 
-    zxbcdt = x @ p.w_in.to(dt_c)
+    zxbcdt = dot(x, p.w_in.to(dt_c))
     z, xin, bmat, cmat, dt_raw = torch.split(zxbcdt, [d_in, d_in, N, N, nh], dim=-1)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
     conv_out, conv_state = causal_conv(conv_in, p.conv_w.to(dt_c), p.conv_b.to(dt_c),
@@ -125,4 +134,4 @@ def apply_mamba(p: Mamba, x, cfg: ModelConfig, runtime: Runtime, *, cache=None,
     gated = y * F.silu(z.to(F32))
     ms = torch.mean(gated * gated, dim=-1, keepdim=True)
     gated = gated * torch.rsqrt(ms + 1e-6) * p.norm_w.to(F32)
-    return gated.to(dt_c) @ p.w_out.to(dt_c), cache
+    return dot(gated.to(dt_c), p.w_out.to(dt_c)), cache

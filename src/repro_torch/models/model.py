@@ -17,10 +17,19 @@ repeat count; here every repeat is one entry of ``LM.layers`` (an
 per-stage layout with a leading repeat axis, updated in place. Where the
 reference wraps a stage's scan body in ``jax.checkpoint`` (``remat_policy``
 not ``"none"``, no cache), each layer runs under
-``torch.utils.checkpoint`` when a gradient is being recorded: its
-activations are recomputed in the backward, whatever the policy names (the
-reference's ``"dots"`` keeps its matmul outputs; the values are the same,
-memory and time differ).
+``torch.utils.checkpoint`` when a gradient is being recorded, with the
+reference's policy (``_remat_policy``): ``"full"`` recomputes the whole
+layer in the backward, any other name (``"dots"``, every config's default)
+keeps the outputs of its products without batch dims (``layers.dot``) and
+recomputes the rest (norms, activations, RoPE, the flash and SSD kernels,
+the expert products, the collectives).
+
+On a mesh whose runtime asks for sequence parallelism (``seq_shard_acts``)
+the residual stream between the layers is each rank's block of S / n rows
+where the reference's ``residual_constrain`` shards it
+(``layers.seq_runtime``): cut after the embedding (``residual_constrain``),
+kept by every layer (a stage repeat, also the checkpoint boundary), and
+gathered whole before the final norm, the head and the loss.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from repro_torch.configs.base import ModelConfig, Stage
 from repro_torch.device import resolve_device
@@ -188,11 +197,28 @@ def _apply_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positi
     return x, aux_total
 
 
+def _remat_policy(name: str):
+    """The reference's ``_remat_policy`` names as a checkpoint's
+    ``context_fn``: None for ``"none"`` (no checkpoint), one that recomputes
+    everything for ``"full"`` (``nothing_saveable``), and for any other name
+    the ``"dots"`` policy (``checkpoint_dots_with_no_batch_dims``): the
+    layer's products without batch dims (``layers.dot``) keep their outputs
+    (``layers.KeptProducts``) and the rest is recomputed, the kernels, the
+    norms, the activations, the expert products of batch E and the
+    collectives among it."""
+    if name == "none":
+        return None
+    if name == "full":
+        return noop_context_fn
+    return lambda: L.KeptProducts().contexts()
+
+
 def _remat_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions, memory,
-                 batch=None):
-    """``_apply_layer`` under ``torch.utils.checkpoint``: the backward
-    recomputes the layer (launching its kernels again). The recompute records
-    no expert ids, and where the forward's MoE blocks replayed ids it replays
+                 batch, context_fn):
+    """``_apply_layer`` under ``torch.utils.checkpoint`` with ``context_fn``
+    (``_remat_policy``): the backward recomputes what the policy does not
+    keep (launching the layer's kernels again). The recompute records no
+    expert ids, and where the forward's MoE blocks replayed ids it replays
     the same ones (``moe.recomputing``), so a route is recorded or replayed
     once per forward."""
     routes, calls, replayed = [], [0], MOE.replaying()
@@ -208,18 +234,34 @@ def _remat_layer(layer, x, aux_total, cfg: ModelConfig, runtime: Runtime, positi
         routes.extend(ids)
         return out
 
-    return checkpoint(run, x, aux_total, memory, use_reentrant=False)
+    return checkpoint(run, x, aux_total, memory, use_reentrant=False, context_fn=context_fn)
 
 
 def _apply_layers(layers, x, aux_total, cfg: ModelConfig, runtime: Runtime, positions,
                   memory=None, batch=None):
-    """The layers in order, each rematerialised (``_remat_layer``) where the
-    config asks for it and a gradient is being recorded."""
-    remat = cfg.remat_policy != "none" and torch.is_grad_enabled()
-    apply = _remat_layer if remat else _apply_layer
+    """The layers in order on the whole residual ``x`` (B, S, d), each
+    rematerialised (``_remat_layer``) with the config's policy where it asks
+    for one and a gradient is being recorded. On a mesh with sequence
+    parallelism the layers carry the rank's block of S
+    (``layers.residual_constrain``), and the result is gathered whole
+    again."""
+    runtime = L.seq_runtime(runtime, positions.shape[-1])
+    context_fn = _remat_policy(cfg.remat_policy) if torch.is_grad_enabled() else None
+    x = L.residual_constrain(x, runtime)
     for layer in layers:
-        x, aux_total = apply(layer, x, aux_total, cfg, runtime, positions, memory, batch)
-    return x, aux_total
+        if context_fn is None:
+            x, aux_total = _apply_layer(layer, x, aux_total, cfg, runtime, positions, memory,
+                                        batch)
+        else:
+            x, aux_total = _remat_layer(layer, x, aux_total, cfg, runtime, positions, memory,
+                                        batch, context_fn)
+    return _whole_sequence(x, runtime), aux_total
+
+
+def _whole_sequence(x, runtime: Runtime):
+    """The residual whole over S again where it was split (``model_all_gather``:
+    the backward takes the rank's block)."""
+    return L.model_all_gather(x, runtime, 1) if runtime.seq_split else x
 
 
 def _embed(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens):
@@ -482,13 +524,15 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
     x = _embed(lm, cfg, runtime, tokens if rows is None else tokens[rows])
     positions = (index + torch.arange(S, device=x.device))[None, :]
     memory = _encode_memory(lm, cfg, runtime, extra_inputs or {}, rows)
+    rt = L.seq_runtime(runtime, S)  # a prefill's residual may split over S
+    x = L.residual_constrain(x, rt)
     for layer, (si, r) in zip(lm.layers, lm.stage_of):
         st = caches.get(f"stage{si}")
         for i, block in enumerate(layer):
             cache = write_back = None
             if block.kind in ("self_attn", "mamba"):
-                cache, write_back = _layer_cache(st[f"b{i}"], block.kind, r, runtime, index)
-            x, _, _ = _apply_block(block, x, cfg, runtime, positions=positions, memory=memory,
+                cache, write_back = _layer_cache(st[f"b{i}"], block.kind, r, rt, index)
+            x, _, _ = _apply_block(block, x, cfg, rt, positions=positions, memory=memory,
                                    cache=cache, batch=B)
             if write_back is not None:
                 write_back()
@@ -496,7 +540,7 @@ def apply_decode(lm: LM, cfg: ModelConfig, runtime: Runtime, tokens, caches, ind
         for blk in (st or {}).values():
             if "index" in blk:  # attention caches only; a Mamba cache has no index
                 L.local_shard(blk["index"]).fill_(index)
-    return _head(lm, cfg, runtime, x, B), caches
+    return _head(lm, cfg, runtime, _whole_sequence(x, rt), B), caches
 
 
 # ----------------------------------------------------------------------------

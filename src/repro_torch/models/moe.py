@@ -19,7 +19,10 @@ expert products and combine in one of the reference's three modes:
 
 The reference writes the last two as ``shard_map`` bodies; here they are the
 same code on each rank's local shards with the same collectives on the model
-axis's process group. Tokens past an expert's capacity fall through with a
+axis's process group. Where the residual is split over S
+(``Runtime.seq_split``) the block gathers the sequence whole, routes and
+dispatches it as above (the same capacities and drops), and keeps the
+rank's rows of its output. Tokens past an expert's capacity fall through with a
 zero update; ``cf = E / top_k`` is dropless (and the modes then agree).
 
 Parameters keep the reference's leaves: ``router`` (d, E) in float32 whatever
@@ -29,6 +32,7 @@ reference does), ``w_gate`` / ``w_up`` (E, d, f) and ``w_down`` (E, f, d).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 
 import torch
@@ -38,9 +42,9 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.models.layers import (Runtime, _param, batch_axes, batch_mean,
-                                       batch_rows, enter_split, local_weights, matmul,
+                                       batch_rows, dot, enter_split, local_weights, matmul,
                                        model_all_gather, model_all_reduce, model_all_to_all,
-                                       model_rank)
+                                       model_rank, residual_constrain)
 
 F32 = torch.float32
 _ROUTE_SINKS: list[list] = []  # lists collecting expert ids, see recording_routes
@@ -254,6 +258,10 @@ def apply_moe(p: MoE, x, cfg: ModelConfig, runtime: Runtime, cf: float = 1.25,
     E · Σ_e f_e · P_e in float32. On a mesh ``x`` holds this rank's rows of
     a batch of ``batch`` (default: ``x``'s own), and replayed routes of the
     whole batch are cut to those rows."""
+    if runtime.seq_split:  # routed over the whole sequence: gathered, the rank's rows kept
+        y, aux = apply_moe(p, model_all_gather(x, runtime, 1), cfg,
+                           dataclasses.replace(runtime, seq_split=False), cf, batch)
+        return residual_constrain(y, runtime), aux
     m = cfg.moe
     E, k = m.n_experts, m.top_k
     B, S, d = x.shape
@@ -261,7 +269,7 @@ def apply_moe(p: MoE, x, cfg: ModelConfig, runtime: Runtime, cf: float = 1.25,
     dt = runtime.compute_dtype
 
     if runtime.mesh is None:
-        logits = torch.einsum("bsd,de->bse", x, p.router.to(dt)).to(F32)
+        logits = dot(x, p.router.to(dt)).to(F32)
     else:
         logits = matmul(x, p.router, runtime, 1).to(F32)
     probs = torch.softmax(logits, dim=-1)

@@ -169,3 +169,46 @@ def test_fake_mesh_step_issues_the_collectives_of_four_gloo_ranks():
     # a flash call a layer in each microbatch's forward and its recompute
     cfg = get_config(DRYRUN_STEP[0]).reduced()
     assert fake["ops"]["flash_fwd"] == 2 * cfg.microbatches * cfg.n_layers == 16
+
+
+def test_remat_and_seq_shard_change_the_train_and_prefill_traces_not_decode():
+    """The reduced gemma-2b's cells on a (2, 2) fake mesh under the
+    dry-run's --remat (full / dots) and --seq-shard (on / off): "dots"
+    recomputes fewer FLOPs than "full" in the train step; the residual split
+    over S holds less temporary memory than whole in the train step (the
+    checkpoints' inputs), and issues other collectives in the train and
+    prefill steps; a decode step (S = 1, no gradient) is the same under all
+    four."""
+    got = _run("""
+        import dataclasses, json, torch
+        torch.set_num_threads(1)
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import fake_world
+
+        out = {}
+        with fake_world(4, device_type="cpu", shape=(2, 2), axes=("data", "model")) as mesh:
+            for shape in ("train_4k", "prefill_32k", "decode_32k"):
+                for remat in ("full", "dots"):
+                    for seq in ("on", "off"):
+                        cfg = dryrun.effective_config("gemma-2b", remat=remat,
+                                                      seq_shard=seq == "on")
+                        cfg = dataclasses.replace(cfg.reduced(), microbatches=1)
+                        got, _ = dryrun.trace_cell("gemma-2b", shape, mesh, cfg=cfg)
+                        out[f"{shape} {remat} {seq}"] = {
+                            "flops": got["flops"], "bytes": got["bytes"], "calls": got["calls"],
+                            "temp": got["memory"]["temp_size_in_bytes"],
+                            "ops": got["kernel_ops"]}
+        print(json.dumps(out))
+        """, timeout=600)
+    train = {k.split(" ", 1)[1]: v for k, v in got.items() if k.startswith("train_4k")}
+    for seq in ("on", "off"):
+        assert train[f"dots {seq}"]["flops"] < train[f"full {seq}"]["flops"], seq
+        assert train[f"dots {seq}"]["ops"] == train[f"full {seq}"]["ops"], seq
+    for remat in ("full", "dots"):
+        assert train[f"{remat} on"]["temp"] < train[f"{remat} off"]["temp"], remat
+        assert train[f"{remat} on"]["calls"] != train[f"{remat} off"]["calls"], remat
+    prefill = {k.split(" ", 1)[1]: v for k, v in got.items() if k.startswith("prefill_32k")}
+    assert prefill["dots on"] == prefill["full on"] and prefill["dots off"] == prefill["full off"]
+    assert prefill["dots on"]["calls"] != prefill["dots off"]["calls"]
+    decode = [v for k, v in got.items() if k.startswith("decode_32k")]
+    assert all(v == decode[0] for v in decode)

@@ -174,9 +174,12 @@ def test_engine_on_mesh_matches_golden(ranks, arch):
 def test_mesh_branch_equals_single_device(ranks, name):
     """The attention's heads-on-G mode and its unsplit fallback,
     cross-attention with the vlm's patches and the audio encoder's frames
-    taken by batch rows, and jamba's Mamba mixer with its states split over
-    'model': the forward's and a prefill's and decode steps' logits within
-    1e-5 of one device's, relative to the max |logit|."""
+    taken by batch rows, jamba's Mamba mixer with its states split over
+    'model', sequence mode with the residual split over S (the configs'
+    default) and whole, and attention by query rows with the residual split
+    in the audio model's encoder and cross-attention: the forward's and a
+    cache-filling prefill's and decode steps' logits within 1e-5 of one
+    device's, relative to the max |logit|."""
     cfg, B, S, steps = branch_config(name)
     lm = interop.params_from_jax(interop.numpy_params(cfg, 0), cfg, "cpu")
     forward, decode = branch_run(cfg, lm, RT, B, S, steps)

@@ -13,7 +13,12 @@ weights on both sides.
   512-word head), codeqwen (heads on KV, the qkv biases), moonshot (the MoE's
   a2a mode on the reference's expert ids), mamba2-130m (pure data parallel),
   gemma-2b with its G query heads split, and with no split of its
-  attention (every rank whole).
+  attention (every rank whole); the cases whose S splits run with the
+  residual split over S between the layers (the configs' default sequence
+  parallelism) and again with it whole (``*_whole``).
+* The residual a layer takes holds S / 2 rows on a rank exactly where the
+  reference's ``residual_constrain`` shards it (S splits, a model axis,
+  sequence parallelism on), and S rows elsewhere.
 * The train step's gradients (two microbatches) within 1e-5 of
   ``jax.grad`` of the microbatches' mean loss, with the moved weights held
   for the step (``layers.held_weights``), without, and held up to a budget
@@ -42,7 +47,7 @@ from repro_torch.launch.mesh import spawn
 from repro_torch.train.optimizer import adafactor
 
 from torch_scripts import (GRAD_CASES, HOLDS, STEP_CASES, adafactor_grads, grad_batch,
-                           mesh_train_cases)
+                           mesh_train_cases, residual_rows)
 
 REF_RT = RefRuntime(mesh=None, data_axes=("data",), compute_dtype=jnp.float32)
 
@@ -125,6 +130,15 @@ def test_sharded_gradients_match_jax_grad(ranks, name):
             scale = max(float(np.abs(w).max()), 1e-30)
             err = float(np.abs(got[path] - w).max()) / scale
             assert err <= 1e-5, (name, path, err)
+
+
+@pytest.mark.parametrize("name", list(GRAD_CASES))
+def test_residual_between_layers_is_the_references_layout(ranks, name):
+    arch, changes, B, S = GRAD_CASES[name]
+    want = residual_rows(get_config(arch).reduced(**changes), S)
+    assert want == (S if name in ("mamba", "unsplit") or name.endswith("_whole") else S // 2)
+    for r in ranks:
+        assert r["residual_rows"][name] == {want}, (name, r["residual_rows"][name])
 
 
 @pytest.mark.parametrize("name", STEP_CASES)

@@ -144,6 +144,16 @@ BRANCH_CASES = {
     "heads_on_g": ("gemma-2b", {"attn_shard": "auto"}, 4, 8, 3),
     # neither KV 1 nor G 3 splits and S 7 does not either: every rank whole
     "unsplit": ("gemma-2b", {"n_heads": 3}, 4, 7, 3),
+    # sequence mode with the residual split over S (the config's default):
+    # each rank's block is its query rows, the cache filled from the gathered
+    # sequence
+    "sequence": ("gemma-2b", {}, 4, 8, 3),
+    # the same with the residual whole between blocks
+    "sequence_whole": ("gemma-2b", {"seq_shard_activations": False}, 4, 8, 3),
+    # no head split (KV 1, G 3) with the residual split over S: the encoder's
+    # non-causal self-attention and the decoder's cross-attention by query
+    # rows
+    "audio_rows": ("seamless-m4t-large-v2", {"n_heads": 3, "kv_heads": 1}, 4, 8, 3),
 }
 
 
@@ -367,6 +377,21 @@ GRAD_CASES = {
     # neither KV 1 nor G 3 splits and S 7 does not either: every rank whole
     "unsplit": ("gemma-2b", {"n_heads": 3}, 4, 7),
 }
+# The cases above split the residual over S between the layers where the
+# reference does (the configs' seq_shard_activations; not under pure data
+# parallelism, nor where S does not split); each of those again with the
+# residual whole between the layers
+GRAD_CASES.update({f"{name}_whole": (arch, {**changes, "seq_shard_activations": False}, B, S)
+                   for name, (arch, changes, B, S) in list(GRAD_CASES.items())
+                   if name not in ("mamba", "unsplit")})
+
+
+def residual_rows(cfg, S, model_n=2):
+    """The rows of S a rank's residual holds between the layers on a model
+    axis of ``model_n``: the reference's ``residual_constrain`` condition."""
+    split = (cfg.seq_shard_activations and not cfg.pure_dp and S % model_n == 0
+             and S >= model_n)
+    return S // model_n if split else S
 
 
 def grad_batch(cfg, B, S, seed=5):
@@ -444,6 +469,7 @@ def mesh_train_cases(rank, world, routes):
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.launch.specs import make_runtime
+    from repro_torch.models import model as M
     from repro_torch.models import moe
     from repro_torch.models.layers import distribute
     from repro_torch.models.model import lm_loss
@@ -451,15 +477,26 @@ def mesh_train_cases(rank, world, routes):
     from repro_torch.train.step import make_train_step
 
     mesh = make_smoke_mesh(2, 2, device_type="cpu")
-    out = {"grads": {}, "step": {}}
+    out = {"grads": {}, "step": {}, "residual_rows": {}}
+    apply_layer = M._apply_layer
     for name, (arch, changes, B, S) in GRAD_CASES.items():
         cfg, lm = _mesh_model(None, mesh, cfg=get_config(arch).reduced(**changes))
         toks, labels = grad_batch(cfg, B, S)
         held = moe.replaying_routes([torch.as_tensor(r).long() for r in routes[name]]) \
             if name in routes else contextlib.nullcontext()
-        with held:
-            loss, _ = lm_loss(lm, cfg, make_runtime(cfg, mesh, torch.float32), toks, labels)
-            loss.backward()
+        rows = out["residual_rows"][name] = set()
+
+        def recording_layer(layer, x, *args, **kwargs):  # the rows of each layer's input
+            rows.add(x.shape[1])
+            return apply_layer(layer, x, *args, **kwargs)
+
+        M._apply_layer = recording_layer
+        try:
+            with held:
+                loss, _ = lm_loss(lm, cfg, make_runtime(cfg, mesh, torch.float32), toks, labels)
+                loss.backward()
+        finally:
+            M._apply_layer = apply_layer
         grads = interop.params_to_jax(lm, cfg, {n: p.grad for n, p in lm.named_parameters()})
         out["grads"][name] = (float(loss.detach()), grads)
         if name in STEP_CASES:
