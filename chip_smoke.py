@@ -307,11 +307,12 @@ is non-zero:
                replays its rows' ids): loss rtol 1e-4, grad_norm rtol 1e-3,
                and per rank the flash / ssd launches the steps imply (one per
                attention / Mamba layer per microbatch, twice with the
-               recompute); (b) gemma-2b at full width cut to 4 of its 18
+               recompute); (b) gemma-2b at full width cut to 2 of its 18
                layers (MESH_TRAIN_LAYERS: gloo's latency differs between
                hosts, and before a step held the weights it moves the phase
                took 120-190 s at 4 layers and 143-152 s at 6; since, 52 s
-               at 4 in the script, 77-86 s alone on a slower host),
+               at 4 in the script, 77-86 s alone on a slower host; part (e)
+               added 58-65 s, and the depth went from 4 to 2 layers),
                float32 weights and
                AdamW, B 4 x S 256 in 2 microbatches, the residual split
                over S between the layers (the config's default; the step's
@@ -327,7 +328,17 @@ is non-zero:
                launches a rank; (d) compress_allreduce_pod on a (2, 2) ("pod",
                "data") mesh, pods holding different gradients, bit for bit
                with a NumPy transcription of the reference's formula over two
-               calls (the error state carried). Each rank holds the flash and
+               calls (the error state carried); (e) run_with_recovery's
+               in-process restart on every rank (restart_case): reduced
+               gemma-2b on (2, 2), seq 16, batch 4, 12 steps, a checkpoint
+               every 4, a failure at step 6, and mamba2-130m at full width
+               and depth, pure data parallel, seq 512, batch 8, 4 steps, a
+               checkpoint every 2 (~1.55 GB each, under a temporary
+               directory removed after), a failure at step 3: one restart,
+               LATEST at the last step, the steps after the restored one
+               logged, the parameters within 1e-6 of an uninterrupted run,
+               the kernel launched after the rebuild; each save's bytes
+               and seconds logged. Each rank holds the flash and
                SSD kernels against their plain versions at every shape it
                called them with. Each part's time, collectives by kind with
                their input bytes (c10d_calls) and peak memory per rank; the
@@ -3575,10 +3586,12 @@ def mesh_phase(fleet_ref):
 # 23. the sharded train step on the mesh
 # ----------------------------------------------------------------------------
 MESH_TRAIN_LIMIT_S = 180.0
-MESH_TRAIN_LAYERS = 4  # gemma-2b's depth in part (b) (full width; 18 uncut)
+MESH_TRAIN_LAYERS = 2  # gemma-2b's depth in part (b) (full width; 18 uncut)
 MESH_TRAIN_GEMMA = (4, 256, 2)  # B, S, microbatches of part (b)
 MESH_TRAIN_MAMBA = (8, 512)  # B x S of part (c), one microbatch (two chunks of 256)
 DIGEST_TOL = 1e-3  # a leaf's gradient digests against the single rank's
+RESTART_MAMBA = (512, 8)  # seq, global batch of part (e)(ii) (two chunks of 256)
+RESTART_MAMBA_REDUCED = (32, 8)  # a CPU rehearsal's
 
 
 def mesh_train_config(arch, reduced=False):
@@ -3918,8 +3931,173 @@ def part_train_pod(out, ctx):
     out["max_abs_diff"] = worst
 
 
+@contextlib.contextmanager
+def timed_saves():
+    """``train.checkpoint.save`` wrapped meanwhile: yields [{"dir", "step",
+    "t0" (the call's wall clock), "host_s" (the call: the gather and the host
+    copy; the write runs on a thread)}], one entry a save."""
+    from repro_torch.train import checkpoint as ckpt
+
+    saves, save = [], ckpt.save
+
+    def timed(ckpt_dir, step, tree, **kwargs):
+        t0, c0 = time.time(), time.perf_counter()
+        writer = save(ckpt_dir, step, tree, **kwargs)
+        saves.append({"dir": str(ckpt_dir), "step": step, "t0": t0,
+                      "host_s": time.perf_counter() - c0})
+        return writer
+
+    ckpt.save = timed
+    try:
+        yield saves
+    finally:
+        ckpt.save = save
+
+
+def written_saves(saves):
+    """``timed_saves``' entries with the bytes written and the seconds from
+    the call to the manifest's write, where this process writes (rank 0 of
+    a group); none elsewhere."""
+    from repro_torch.train import checkpoint as ckpt
+
+    written = []
+    for entry in saves if ckpt._writes() else ():
+        step_dir = Path(entry["dir"]) / f"step_{entry['step']}"
+        written.append({"step": entry["step"], "host_s": entry["host_s"],
+                        "bytes": sum(f.stat().st_size for f in step_dir.iterdir()),
+                        "save_s": (step_dir / "manifest.json").stat().st_mtime - entry["t0"]})
+    return written
+
+
+def restart_case(cfg, rt, tcfg, fail_at, kernel=None, ref=None):
+    """``run_with_recovery`` with a failure injected at step ``fail_at`` (the
+    reference's in-process restart, on one device or every rank of a mesh),
+    its checkpoints under ``tcfg.ckpt_dir`` / "rec", against an uninterrupted
+    run of ``tcfg`` (``ref``, a Trainer that ran, or one run here under
+    "ref"). Returns {"restarts", "latest" (LATEST after the run),
+    "resumed_from" (the step the last trainer built restored),
+    "logged_steps" (the history's), "rebuilds" [{"held_free", "kept_free":
+    no weight hold and no "dots" region open when a trainer was built,
+    "at_s"}], "launches" (``kernel``'s launches in both runs),
+    "launches_after_restart" (those from the rebuild on),
+    "params_max_abs_err" (every parameter gathered whole against the
+    uninterrupted run's), "saves" (``written_saves``), "ref_s" / "end_s"
+    (seconds from the start, as "at_s"), "step_dt" (the logged steps'
+    seconds)}."""
+    from repro_torch.models import layers
+    from repro_torch.models.layers import whole
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.loop import Trainer, run_with_recovery
+
+    def sub(name):
+        return dataclasses.replace(tcfg, ckpt_dir=str(Path(tcfg.ckpt_dir) / name))
+
+    def count():
+        return kernel.launches if kernel is not None else 0
+
+    rec, start = {"rebuilds": []}, count()
+    t0 = time.perf_counter()
+    with timed_saves() as saves:
+        if ref is None:
+            ref = Trainer(cfg, sub("ref"), rt)
+            ref.init_or_restore()
+            ref.run()
+        rec["ref_s"] = time.perf_counter() - t0
+
+        def make_trainer():
+            rec["rebuilds"].append({"held_free": layers._HELD is None,
+                                    "kept_free": layers._KEPT is None,
+                                    "at_s": time.perf_counter() - t0})
+            rec["launches_at_build"] = count()
+            rec["resumed_from"] = ckpt.latest_step(sub("rec").ckpt_dir)  # what it restores
+            rec["trainer"] = Trainer(cfg, sub("rec"), rt)
+            return rec["trainer"]
+
+        history, rec["restarts"] = run_with_recovery(make_trainer, total_steps=tcfg.steps,
+                                                     fail_at=fail_at)
+    rec["end_s"] = time.perf_counter() - t0
+    rec["step_dt"] = [h["dt"] for h in history]
+    tr = rec.pop("trainer")
+    rec["launches"] = count() - start
+    rec["launches_after_restart"] = count() - rec.pop("launches_at_build")
+    rec["latest"] = ckpt.latest_step(sub("rec").ckpt_dir)
+    rec["logged_steps"] = [h["step"] for h in history]
+    with torch.no_grad():
+        rec["params_max_abs_err"] = max(
+            float((whole(a) - whole(b)).abs().max())
+            for a, b in zip(ref.params.parameters(), tr.params.parameters()))
+    rec["saves"] = written_saves(saves)
+    return rec
+
+
+def check_restart(rec, what, steps, resumed_from, cuda):
+    """``restart_case``'s record: one restart, LATEST at ``steps``, resumed
+    from ``resumed_from`` with every later step logged, no hold or "dots"
+    region left open at a rebuild, the parameters within 1e-6 of the
+    uninterrupted run's, and (on the card) the kernel launched after the
+    rebuild."""
+    logged = list(range(resumed_from + 1, steps + 1))
+    if not (rec["restarts"] == 1 and rec["latest"] == steps
+            and rec["resumed_from"] == resumed_from and rec["logged_steps"] == logged
+            and all(b["held_free"] and b["kept_free"] for b in rec["rebuilds"])):
+        raise AssertionError(f"mesh-train restart {what}: {rec}")
+    if not rec["params_max_abs_err"] <= 1e-6:
+        raise AssertionError(f"mesh-train restart {what}: the parameters are "
+                             f"{rec['params_max_abs_err']} off the uninterrupted run's")
+    if cuda and rec["launches_after_restart"] == 0:
+        raise AssertionError(f"mesh-train restart {what}: no kernel launch after the rebuild")
+
+
+def part_train_restart(out, ctx):
+    """(e) the in-process restart on the (2, 2) mesh, every rank failing at
+    the same step (``run_with_recovery``): (i) reduced gemma-2b, float32,
+    seq 16, batch 4, 12 steps, a checkpoint every 4, a failure at step 6;
+    (ii) mamba2-130m at full width and depth, pure data parallel, float32,
+    RESTART_MAMBA's seq and batch, 4 steps, a checkpoint every 2, a failure
+    at step 3. Each against its uninterrupted run (``check_restart``); the
+    checkpoints under a temporary directory removed at the end, each save's
+    bytes and seconds kept."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention, ssd
+    from repro_torch.launch.specs import make_runtime
+    from repro_torch.train.loop import TrainerConfig
+
+    device, mesh = ctx["device"], ctx["mesh"]
+    cuda = torch.device(device).type == "cuda"
+    rank0 = dist.get_rank() == 0
+    root = [tempfile.mkdtemp(prefix="repro_restart_") if rank0 else None]
+    dist.broadcast_object_list(root, src=0)
+    root = Path(root[0])
+    clock = Clock(device)
+    try:
+        cfg = get_config(FULL_ARCH).reduced()
+        tcfg = TrainerConfig(seq_len=16, global_batch=4, steps=12, ckpt_every=4,
+                             ckpt_dir=str(root / "gemma"), seed=SEED, log_every=1)
+        out["gemma"] = restart_case(cfg, make_runtime(cfg, mesh, torch.float32), tcfg, 6,
+                                    flash_attention)
+        out["gemma"]["s"] = clock()
+        check_restart(out["gemma"], "gemma", 12, 4, cuda)
+        cfg = mesh_train_config(SSM_ARCH, ctx["reduced"])
+        S, B = RESTART_MAMBA_REDUCED if ctx["reduced"] else RESTART_MAMBA
+        tcfg = TrainerConfig(seq_len=S, global_batch=B, steps=4, ckpt_every=2,
+                             ckpt_dir=str(root / "mamba"), seed=SEED, log_every=1)
+        out["mamba"] = restart_case(cfg, make_runtime(cfg, mesh, torch.float32), tcfg, 3, ssd)
+        out["mamba"]["s"] = clock()
+        check_restart(out["mamba"], "mamba", 4, 2, cuda)
+        dist.barrier()  # no rank reads a checkpoint once rank 0 removes them
+    finally:
+        if rank0:
+            shutil.rmtree(root, ignore_errors=True)
+
+
 TRAIN_PARTS = {"train_golden": part_train_golden, "train_gemma": part_train_gemma,
-               "train_mamba": part_train_mamba, "train_pod": part_train_pod}
+               "train_mamba": part_train_mamba, "train_pod": part_train_pod,
+               "train_restart": part_train_restart}
 
 
 def mesh_train_phase(train_golden):
@@ -3940,8 +4118,12 @@ def mesh_train_phase(train_golden):
     wall = time.perf_counter() - t_phase
     for rec in recs:
         log("mesh-train", **rec)
-    flash = [r["train_golden"]["launches"][0] + r["train_gemma"]["flash_launches"] for r in recs]
-    ssd_l = [r["train_golden"]["launches"][1] + r["train_mamba"]["ssd_launches"] for r in recs]
+    restart = {"flash": [r["train_restart"]["gemma"]["launches_after_restart"] for r in recs],
+               "ssd": [r["train_restart"]["mamba"]["launches_after_restart"] for r in recs]}
+    flash = [r["train_golden"]["launches"][0] + r["train_gemma"]["flash_launches"]
+             + r["train_restart"]["gemma"]["launches"] for r in recs]
+    ssd_l = [r["train_golden"]["launches"][1] + r["train_mamba"]["ssd_launches"]
+             + r["train_restart"]["mamba"]["launches"] for r in recs]
     checked = {k: mesh_checks(recs, k, TRAIN_PARTS) for k in ("flash_attention", "ssd_chunk")}
     log("mesh-train", ranks=len(recs), references_s=refs_s, ranks_s=ranks_s,
         ranks_startup_s=startup_s, ranks_setup_s=max(r["setup_s"] for r in recs),
@@ -3949,19 +4131,26 @@ def mesh_train_phase(train_golden):
         parts_s={name: max(r[name]["s"] for r in recs) for name in TRAIN_PARTS},
         flash_launches_per_rank=flash, ssd_launches_per_rank=ssd_l,
         peak_gb_per_rank=[max(r[p].get("peak_gb", 0) for p in TRAIN_PARTS) for r in recs],
+        restart_launches_after_rebuild_per_rank=restart,
+        restart_s={case: max(r["train_restart"][case]["s"] for r in recs)
+                   for case in ("gemma", "mamba")},
+        restart_saves_rank0={case: recs[0]["train_restart"][case]["saves"]
+                             for case in ("gemma", "mamba")},
         kernels_checked_at_the_ranks_shapes=checked, phase_wall_s=wall)
     if min(flash) == 0 or min(ssd_l) == 0:
         raise AssertionError(f"mesh-train: a rank launched no flash {flash} or ssd {ssd_l} kernel")
     for rec in recs:
-        for part in ("train_golden", "train_gemma", "train_mamba"):
+        for part in ("train_golden", "train_gemma", "train_mamba", "train_restart"):
             if not rec[part].get("kernel_checks"):
                 raise AssertionError(f"mesh-train {part}: rank {rec['rank']} checked no kernel "
                                      "at its shapes")
     if wall > MESH_TRAIN_LIMIT_S:
         raise AssertionError(f"mesh-train: the phase took {wall:.1f} s > {MESH_TRAIN_LIMIT_S} s")
     return {"flash": {"launches": sum(flash), "launches_per_rank": flash,
+                      "restart_launches_per_rank": restart["flash"],
                       "checked": checked["flash_attention"]},
             "ssd": {"launches": sum(ssd_l), "launches_per_rank": ssd_l,
+                    "restart_launches_per_rank": restart["ssd"],
                     "checked": checked["ssd_chunk"]}}
 
 

@@ -17,6 +17,12 @@ from repro_torch.core.problem import ServerCaps
 from repro_torch.device import f64, resolve_device
 
 
+def pack_apps(apps, device=None) -> dict:
+    """The shared engine packing as float64 tensors on ``device`` (the CUDA
+    device by default), the reference's historical entry point."""
+    return as_packed(apps).as_dict(resolve_device(device))
+
+
 def utility_batch(
     packed: dict,
     n: torch.Tensor,  # (B, M) float64

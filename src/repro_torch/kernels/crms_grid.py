@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import build_library
+from repro_torch.kernels.ref import MAX_N  # noqa: F401  (the counts the kernel's k-sum covers)
 
 F32 = torch.float32
 

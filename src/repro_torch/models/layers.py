@@ -613,10 +613,13 @@ class _RowLookup(torch.autograd.Function):
         g = _all_gather(_wire(g), mesh.get_group(i), mesh.size(i), 0)
         # the tokens outside this rank's rows add into a spare last row, which
         # is dropped: the same sums as a masked index_add_, with no shape that
-        # depends on the tokens (a trace on fake tensors runs it)
+        # depends on the tokens (a trace on fake tensors runs it). index_put_
+        # accumulates a row's tokens in a fixed order (on CUDA it sorts them),
+        # where index_add_'s atomics add them in any order: a run repeats
+        # bit for bit, so a restart from a checkpoint does too.
         rows = torch.where(inside, idx, local_shape[0]).reshape(-1)
         grad = torch.zeros((local_shape[0] + 1, *local_shape[1:]), dtype=g.dtype, device=g.device)
-        grad.index_add_(0, rows, g.reshape(-1, *local_shape[1:]))
+        grad.index_put_((rows,), g.reshape(-1, *local_shape[1:]), accumulate=True)
         grad = grad[:-1]
         for k in others:
             grad = _all_reduce(grad, mesh.get_group(k))

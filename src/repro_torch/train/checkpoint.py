@@ -15,10 +15,11 @@ bfloat16: such a tensor is stored as its int16 bits, viewed back on restore
 from the dtype the manifest records (the reference's ``_to_savable``).
 
 On a device mesh a tree's leaves are ``DTensor``s: ``save`` gathers each
-whole on every rank (a collective, so every rank calls it) and rank 0 writes
-the same files as one device does; ``restore`` into a tree of ``DTensor``s
-keeps each rank's shards of the whole values read. A checkpoint written on
-a mesh so restores on one device, and the other way round.
+whole on every rank (a collective, so every rank calls it), and rank 0
+alone copies them to the host and writes the same files as one device does;
+``restore`` into a tree of ``DTensor``s keeps each rank's shards of the whole
+values read. A checkpoint written on a mesh so restores on one device, and
+the other way round.
 """
 from __future__ import annotations
 
@@ -53,13 +54,10 @@ def _unflatten(paths, leaves) -> dict:
 
 
 def _to_savable(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` as NumPy (copied even where ``t`` is on the CPU:
-    the train loop updates its tensors in place while a writer thread runs);
-    a ``DTensor`` gathered whole first; a dtype NumPy lacks (bfloat16) as its
-    same-width integer bits."""
-    if _is_dtensor(t):
-        with torch.no_grad():
-            t = whole(t)
+    """A host copy of ``t`` (whole) as NumPy (copied even where ``t`` is on
+    the CPU: the train loop updates its tensors in place while a writer
+    thread runs); a dtype NumPy lacks (bfloat16) as its same-width integer
+    bits."""
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
@@ -90,8 +88,15 @@ def save(ckpt_dir: str | Path, step: int, tree, *, blocking: bool = True):
     flat = _flatten(tree)
     paths = [path for path, _ in flat]
     dtypes = [str(leaf.dtype).replace("torch.", "") for _, leaf in flat]
-    host_leaves = [_to_savable(leaf) for _, leaf in flat]
-    if not _writes():
+    writes = _writes()
+    host_leaves = []
+    for _, leaf in flat:  # leaf by leaf: one gathered leaf on the device at a time
+        if _is_dtensor(leaf):  # a collective every rank joins
+            with torch.no_grad():
+                leaf = whole(leaf)
+        if writes:  # only the writer copies to the host
+            host_leaves.append(_to_savable(leaf))
+    if not writes:
         return None
 
     def _write():

@@ -11,10 +11,13 @@ weights, lays them out on the mesh in the 2d layout (``interop.place_params``,
 pure data parallel where the config says so), keeps the optimizer state in
 the parameters' placements, and runs the step on the same global batch, of
 which the model takes the rank's rows. Every rank saves (rank 0 writes) and
-restores the same checkpoints. A failure on a mesh fails the run: the other
-ranks may be inside a collective that the failed rank left, so no rank
-restarts alone; the restart is the launch's, in fresh processes that resume
-from LATEST.
+restores the same checkpoints. ``run_with_recovery`` restarts in process on
+a mesh as on one device: a failure that every rank raises at the same step
+(between steps, so no rank is inside a collective) rebuilds the trainer on
+every rank and resumes from LATEST. A broken process group
+(``torch.distributed.DistBackendError``: a rank left, or a collective timed
+out) is raised instead, and the restart is the launch's, in fresh processes
+that resume from LATEST.
 """
 from __future__ import annotations
 
@@ -136,20 +139,26 @@ class Trainer:
 def run_with_recovery(make_trainer, total_steps: int, max_restarts: int = 3,
                       fail_at: int | None = None):
     """Launcher-level fault tolerance: on failure, rebuild the trainer (fresh
-    process semantics), restore from LATEST and continue. On a mesh a failure
-    is raised: the ranks restart together, as new processes."""
+    process semantics), restore from LATEST and continue; the history holds
+    the finished run's logs. On a mesh every rank restarts together: the
+    ranks meet at a barrier before the rebuild. A broken process group's
+    error (``DistBackendError``) is raised on a mesh, since its barrier could
+    not meet; the restart is then fresh processes resuming from LATEST."""
     restarts = 0
     history = []
     while True:
         tr = make_trainer()
         tr.init_or_restore()
-        if tr.runtime.mesh is not None:
-            return tr.run(steps=total_steps, fail_at=fail_at), restarts
         try:
             history += tr.run(steps=total_steps, fail_at=fail_at)
             return history, restarts
-        except RuntimeError:
+        except RuntimeError as e:
+            mesh = tr.runtime.mesh is not None
+            if mesh and isinstance(e, dist.DistBackendError):
+                raise
             restarts += 1
             fail_at = None  # only fail once in tests
             if restarts > max_restarts:
                 raise
+            if mesh:  # every rank enters the rebuild together
+                dist.barrier()

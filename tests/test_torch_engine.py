@@ -290,6 +290,23 @@ def test_evaluate_candidates_matches_reference(hard, tail_q, alpha):
     assert (~np.isfinite(ref[0])).any() == hard
 
 
+def test_pack_apps_matches_reference(mix8):
+    """batch_eval.pack_apps: the reference's dict of float64 leaves, key for
+    key and bit for bit, as tensors on the device asked for (a fresh dict
+    over the shared packing's leaves)."""
+    for apps in (PAPER, mix8["ref"][0]):
+        port_apps = _port(apps, CAPS4)[0]
+        ref = rbe.pack_apps(apps)
+        got = tbe.pack_apps(port_apps, device="cpu")
+        assert set(got) == set(ref)
+        for k, v in ref.items():
+            assert got[k].dtype == torch.float64 and got[k].device == CPU, k
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(v), err_msg=k)
+    packed = teng.as_packed(port_apps)
+    a, b = tbe.pack_apps(packed, device="cpu"), tbe.pack_apps(packed, device="cpu")
+    assert a is not b and a["lam"] is b["lam"]
+
+
 def test_utility_terms_batch_matches_reference():
     n, c, m = _candidates(1)
     ref_d = rbe.pack_apps(PAPER)

@@ -8,9 +8,14 @@ device mesh: four CPU ranks over gloo (one spawn group for the file).
   gradients bit for bit with ``chip_smoke.compress_numpy``, the NumPy
   transcription of the reference's formula; the error state carried over
   two calls.
-* The Trainer's crash-and-resume on the (2, 2) mesh: the crash fails the
-  run on every rank (no rank restarts alone), fresh trainers resume from
-  LATEST, and the parameters end within 1e-6 of an uninterrupted run.
+* ``run_with_recovery`` on the (2, 2) mesh: a failure at step 6 restarts
+  every rank in process (one restart, LATEST 12, steps 5...12 logged as the
+  reference's own ``run_with_recovery`` logs them on one device, no weight
+  hold or "dots" region left open at the rebuild), the parameters within
+  1e-6 of an uninterrupted run; with ``max_restarts=0`` the failure is
+  raised on every rank and fresh trainers resume from LATEST (the launch's
+  restart) to the same parameters. A broken process group's error
+  (``DistBackendError``) is raised on a mesh, not restarted (one process).
 * A checkpoint written on the mesh restores on one device bit for bit, and
   one written on one device restores onto the mesh bit for bit, in the
   parameters' placements.
@@ -24,11 +29,14 @@ import torch
 import repro.core  # noqa: F401  (x64 as in the reference's own test runs)
 import jax
 import jax.numpy as jnp
+from repro.configs import get_config as ref_config
+from repro.train import loop as ref_loop
 from repro.train.step import compress_allreduce_pod as ref_compress
 from repro_torch import interop
 from repro_torch.configs import get_config
 from repro_torch.launch.mesh import spawn
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import loop
 
 from torch_scripts import chip_smoke, mesh_loop_cases
 
@@ -111,6 +119,86 @@ def test_trainer_recovers_on_mesh(ranks):
         ref, rec = dict(_leaves(ref)), dict(_leaves(rec))
         for path, want in ref.items():
             np.testing.assert_allclose(rec[path], want, rtol=0, atol=1e-6, err_msg=path)
+
+
+def test_trainer_restarts_in_process_on_mesh(ranks):
+    """The reference's in-process restart on every rank of the (2, 2) mesh:
+    one restart, resumed from step 4, LATEST 12, steps 5...12 logged, nothing
+    of the failed step's weight hold or "dots" region left at the rebuild,
+    and the parameters within 1e-6 of the uninterrupted run's."""
+    _, out = ranks
+    for r in out:
+        chip_smoke.check_restart(r["restart"], "gemma", 12, 4, cuda=False)
+        assert r["restart"]["restarts"] == 1
+        assert r["restart"]["params_max_abs_err"] <= 1e-6
+        assert len(r["restart"]["rebuilds"]) == 2
+    assert all(r["restart"]["logged_steps"] == out[0]["restart"]["logged_steps"] for r in out)
+    assert [s["step"] for s in out[0]["restart"]["saves"]] == [4, 8, 12]  # rank 0 writes
+    assert all(not r["restart"]["saves"] for r in out[1:])
+
+
+def test_restart_on_mesh_logs_the_references_steps(ranks, tmp_path):
+    """The steps and restarts the mesh's run_with_recovery reports equal the
+    reference's own run_with_recovery on one device for the same
+    TrainerConfig and failure (the weights differ between the packages, so
+    the losses are not compared)."""
+    _, out = ranks
+    tcfg = ref_loop.TrainerConfig(seq_len=16, global_batch=4, steps=12, ckpt_every=4,
+                                  ckpt_dir=str(tmp_path / "ref"), seed=0, log_every=1)
+    cfg = ref_config("gemma-2b").reduced()
+    history, restarts = ref_loop.run_with_recovery(lambda: ref_loop.Trainer(cfg, tcfg),
+                                                   total_steps=12, fail_at=6)
+    assert restarts == 1
+    for r in out:
+        assert (r["restart"]["logged_steps"], r["restart"]["restarts"]) == \
+            ([h["step"] for h in history], restarts)
+    assert [h["step"] for h in history] == list(range(5, 13))
+
+
+class _Trainer:
+    """A stand-in for ``Trainer`` whose run raises ``error``."""
+
+    def __init__(self, error, mesh=object()):
+        self.runtime = type("Rt", (), {"mesh": mesh})()
+        self.error = error
+
+    def init_or_restore(self):
+        return 0
+
+    def run(self, steps=None, fail_at=None):
+        raise self.error
+
+
+def test_broken_group_is_not_restarted_on_mesh(monkeypatch):
+    """A DistBackendError on a mesh (the group itself failed: its barrier
+    could not meet) is raised at once, with no rebuild and no barrier; the
+    restart is then the launch's."""
+    barriers, built = [], []
+    monkeypatch.setattr(loop.dist, "barrier", lambda *a, **k: barriers.append(1))
+
+    def make():
+        built.append(1)
+        return _Trainer(torch.distributed.DistBackendError("a rank left the group"))
+
+    with pytest.raises(torch.distributed.DistBackendError, match="a rank left"):
+        loop.run_with_recovery(make, total_steps=4)
+    assert (len(built), barriers) == (1, [])
+
+
+def test_failure_on_mesh_restarts_after_one_barrier(monkeypatch):
+    """Any other RuntimeError on a mesh restarts, the ranks meeting at one
+    barrier a restart, until max_restarts; without a mesh no barrier."""
+    for mesh, want_barriers in ((object(), 2), (None, 0)):
+        barriers, built = [], []
+        monkeypatch.setattr(loop.dist, "barrier", lambda *a, **k: barriers.append(1))
+
+        def make():
+            built.append(1)
+            return _Trainer(RuntimeError("injected failure"), mesh)
+
+        with pytest.raises(RuntimeError, match="injected failure"):
+            loop.run_with_recovery(make, total_steps=4, max_restarts=2)
+        assert (len(built), len(barriers)) == (3, want_barriers)
 
 
 def test_checkpoint_written_on_mesh_restores_on_one_device(ranks):

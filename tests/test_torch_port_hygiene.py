@@ -160,9 +160,10 @@ MESH_MODULES = ("launch/mesh.py", "launch/specs.py", "launch/traffic.py",
 MESH_TRAIN_CODE = ("models/layers.py", "models/model.py", "models/moe.py", "models/mamba.py",
                    "train/step.py", "train/optimizer.py", "train/checkpoint.py",
                    "train/loop.py", "launch/train.py")
-# The one handler allowed: the one-device restart of run_with_recovery, which
-# returns before its try on a mesh (tests/test_torch_mesh_train_loop.py
-# holds a failure on the mesh to fail the run on every rank).
+# The one handler allowed: run_with_recovery's in-process restart, on one
+# device and on a mesh alike, which re-raises a broken group's error
+# (DistBackendError) on a mesh (tests/test_torch_mesh_train_loop.py holds
+# the restart on the mesh and the re-raise).
 ALLOWED_HANDLERS = {"train/loop.py": {"run_with_recovery"}}
 
 

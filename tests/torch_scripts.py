@@ -542,9 +542,11 @@ def mesh_golden_cases(rank, world, golden):
 def mesh_loop_cases(rank, world, ckpt_dir, one_device_ckpt):
     """The pod all-reduce, the Trainer, the checkpoints and the launcher on
     four ranks: compress_allreduce_pod on a 1-pod (1, 4) and a (2, 2)
-    ("pod", "data") mesh (chip_smoke.run_compress); the Trainer's
-    crash-and-resume on the (2, 2) mesh against an uninterrupted run (the
-    parameters whole); the mesh's parameters saved under ``ckpt_dir``, and
+    ("pod", "data") mesh (chip_smoke.run_compress); on the (2, 2) mesh the
+    Trainer's in-process restart (chip_smoke.restart_case) and, with no
+    restart allowed, its crash and the fresh trainers' resume, each against
+    an uninterrupted run (the parameters whole); the mesh's parameters saved
+    under ``ckpt_dir``, and
     ``one_device_ckpt`` (written on one device) restored onto the mesh
     (whole); launch.train's body on the (2, 2) mesh, and the production
     mesh's error in this group."""
@@ -576,8 +578,11 @@ def mesh_loop_cases(rank, world, ckpt_dir, one_device_ckpt):
     ref = Trainer(cfg, tcfg("ref"), rt)
     ref.init_or_restore()
     ref.run()
-    try:  # a failure on the mesh fails the run on every rank
-        run_with_recovery(lambda: Trainer(cfg, tcfg("rec"), rt), total_steps=12, fail_at=6)
+    # the in-process restart on the mesh, against the uninterrupted run
+    out["restart"] = chip_smoke.restart_case(cfg, rt, tcfg("restart"), 6, ref=ref)
+    try:  # with no restart allowed the failure is raised on every rank
+        run_with_recovery(lambda: Trainer(cfg, tcfg("rec"), rt), total_steps=12, fail_at=6,
+                          max_restarts=0)
         error = None
     except RuntimeError as e:
         error = str(e)
