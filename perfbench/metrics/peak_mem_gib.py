@@ -1,0 +1,6 @@
+"""peak_mem_gib: ``torch.cuda.max_memory_allocated()`` over the window (its
+statistics reset at the window's start), in GiB."""
+
+
+def read(ctx):
+    return None if ctx.peak_bytes is None else ctx.peak_bytes / 2**30
