@@ -108,8 +108,11 @@ def span_device_ms(events, labels):
 def device_profile(fn, kernel, kernel_name, spans=None):
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import telemetry
+
     fn()  # warm-up
     torch.cuda.synchronize()
+    telemetry.clear()
     launches0 = kernel.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
             ranges(spans or {}):
@@ -117,9 +120,11 @@ def device_profile(fn, kernel, kernel_name, spans=None):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device events, less the device-side copies of the profiler ranges
+    # device events, less the device-side copies of the profiler ranges and
+    # of the program's own spans
+    labels = set(spans or {}) | {s.name for s in telemetry.spans()}
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in (spans or {})]
+               and e.name not in labels]
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3

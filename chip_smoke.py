@@ -1534,30 +1534,34 @@ def check_recovery(arch="gemma-2b"):
         params_max_abs_err=err)
 
 
+FLASH_BWD_SPAN, SSD_BWD_SPAN = "kernels/flash_attention.bwd", "kernels/ssd.chunk_bwd"
+
+
 def profile_step(fn):
     """Device time of one call of ``fn`` (a train step) from a torch.profiler
     trace: the busy time (sum of kernel times), the hand-written forward
     kernels' time (flash_fwd*, ssd_chunk_kernel*) and the time of the
-    kernels launched inside the two backwards' profiler ranges."""
+    kernels launched inside the two backwards' spans."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
+    from repro_torch import telemetry
 
     torch.cuda.synchronize()
+    telemetry.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
-    spans = (ops.FLASH_BWD_RANGE, ops.SSD_BWD_RANGE)
+    spans = {s.name for s in telemetry.spans()}  # the program's spans: ranges, not kernels
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in spans]
 
     def ms(es):
         return sum(e.time_range.elapsed_us() for e in es) / 1e3
 
-    in_span = dict.fromkeys(spans, 0.0)
+    in_span = dict.fromkeys((FLASH_BWD_SPAN, SSD_BWD_SPAN), 0.0)
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
             continue
@@ -1570,9 +1574,9 @@ def profile_step(fn):
     return {"profiled_wall_ms": 1e3 * wall, "device_busy_ms": busy,
             "device_idle_share": 1.0 - busy / (1e3 * wall), "device_kernels": len(kernels),
             "flash_fwd_device_ms": ms(e for e in kernels if "flash_fwd" in e.name),
-            "flash_bwd_device_ms": in_span[ops.FLASH_BWD_RANGE],
+            "flash_bwd_device_ms": in_span[FLASH_BWD_SPAN],
             "ssd_fwd_device_ms": ms(e for e in kernels if "ssd_chunk_kernel" in e.name),
-            "ssd_bwd_device_ms": in_span[ops.SSD_BWD_RANGE]}
+            "ssd_bwd_device_ms": in_span[SSD_BWD_SPAN]}
 
 
 def grad_gap(lm, cfg, batch, want_launches):
@@ -1769,13 +1773,14 @@ def device_busy(fn):
     process)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels import ops
+    from repro_torch import telemetry
 
     torch.cuda.synchronize()
+    telemetry.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = (ops.FLASH_BWD_RANGE, ops.SSD_BWD_RANGE)  # ranges, not kernels (profile_step)
+    spans = {s.name for s in telemetry.spans()}  # ranges, not kernels (profile_step)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in spans]
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch import telemetry
 # the kernels' host modules register their operators and FLOP formulas (they
 # build and load nothing at import)
 from repro_torch.kernels import flash_attention as _flash
@@ -33,10 +34,6 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 
 F32 = torch.float32
-# profiler ranges around the two backwards (torch.profiler traces attribute
-# the device time of the kernels launched inside them)
-FLASH_BWD_RANGE = "flash_attention_bwd"
-SSD_BWD_RANGE = "ssd_chunk_bwd"
 
 
 def _kernel_route(t, backend: str) -> bool:
@@ -92,7 +89,7 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        with torch.profiler.record_function(FLASH_BWD_RANGE):
+        with telemetry.span("kernels/flash_attention.bwd"):
             dq, dk, dv = _ref.flash_attention_bwd(q, k, v, out, dout, ctx.causal, ctx.qb, ctx.kb,
                                                   ctx.offset)
         return dq, dk, dv, None, None, None, None, None
@@ -123,10 +120,12 @@ class SSDChunk(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, bmat, cmat, da, chunk, backend):
-        if _kernel_route(x, backend):
-            outs = _ssd.ssd_chunk_op(x, bmat, cmat, da, chunk)
-        else:
-            outs = _ref.ssd_chunk_plain(x, bmat, cmat, da, chunk)
+        with telemetry.span("kernels/ssd.chunk_fwd", x=tuple(x.shape), n=bmat.shape[-1],
+                            chunk=chunk):
+            if _kernel_route(x, backend):
+                outs = _ssd.ssd_chunk_op(x, bmat, cmat, da, chunk)
+            else:
+                outs = _ref.ssd_chunk_plain(x, bmat, cmat, da, chunk)
         ctx.save_for_backward(x, bmat, cmat, da)
         ctx.chunk = chunk
         return outs
@@ -134,7 +133,7 @@ class SSDChunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, d_y, d_states, d_cum):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.profiler.record_function(SSD_BWD_RANGE), torch.enable_grad():
+        with telemetry.span("kernels/ssd.chunk_bwd"), torch.enable_grad():
             outs = _ref.ssd_chunk_plain(*inputs, ctx.chunk)
             grads = torch.autograd.grad(outs, inputs, (d_y, d_states, d_cum), allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(inputs, grads)]
@@ -162,15 +161,16 @@ def ssd_chunks(xh, bmat, cmat, da, chunk: int = 128, backend: str = "auto"):
     y_diag, states, cum = SSDChunk.apply(xh, bmat, cmat, da, Q, backend)
     # inter-chunk recurrence + off-diagonal contribution (tiny, plain torch),
     # on the chunk step's own cumsum of da
-    da_cum = cum.reshape(B, nc, Q, H)
-    chunk_decay = torch.exp(da_cum[:, :, -1, :])  # (B, nc, H)
-    state = torch.zeros_like(states[:, 0])
-    s_in = []
-    for n in range(nc):
-        s_in.append(state)
-        state = states[:, n] + chunk_decay[:, n, :, None, None] * state
-    s_in = torch.stack(s_in, dim=1)  # (B, nc, H, P, N): the state entering each chunk
-    y_off = torch.einsum("bnts,bnth,bnhps->bnthp", cmat.reshape(B, nc, Q, N),
-                         torch.exp(da_cum), s_in)
-    y = y_diag.reshape(B, nc, Q, H, P) + y_off
+    with telemetry.span("kernels/ssd.scan", chunks=nc):
+        da_cum = cum.reshape(B, nc, Q, H)
+        chunk_decay = torch.exp(da_cum[:, :, -1, :])  # (B, nc, H)
+        state = torch.zeros_like(states[:, 0])
+        s_in = []
+        for n in range(nc):
+            s_in.append(state)
+            state = states[:, n] + chunk_decay[:, n, :, None, None] * state
+        s_in = torch.stack(s_in, dim=1)  # (B, nc, H, P, N): the state entering each chunk
+        y_off = torch.einsum("bnts,bnth,bnhps->bnthp", cmat.reshape(B, nc, Q, N),
+                             torch.exp(da_cum), s_in)
+        y = y_diag.reshape(B, nc, Q, H, P) + y_off
     return y.reshape(B, S, H, P), state

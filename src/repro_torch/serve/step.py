@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import Runtime, last_position, whole
 from repro_torch.models.model import apply_decode, apply_lm
@@ -15,9 +16,10 @@ from repro_torch.models.model import apply_decode, apply_lm
 def make_prefill_step(cfg: ModelConfig, runtime: Runtime):
     @torch.inference_mode()
     def prefill_step(lm, batch):
-        extra = {k: v for k, v in batch.items() if k != "tokens"}
-        logits, _ = apply_lm(lm, cfg, runtime, batch["tokens"], extra)
-        return whole(last_position(logits))[:, 0, :]
+        with telemetry.span("serve/prefill"):
+            extra = {k: v for k, v in batch.items() if k != "tokens"}
+            logits, _ = apply_lm(lm, cfg, runtime, batch["tokens"], extra)
+            return whole(last_position(logits))[:, 0, :]
 
     return prefill_step
 

@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.models.layers import _is_dtensor
 from repro_torch.models.layers import local_shard as _local
 
@@ -89,21 +90,22 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8
 
     @torch.no_grad()
     def update(grads, state, params):
-        step = state["step"] + 1
-        t = step.to(F32)
-        c1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
-        c2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
-        for name, p in params.items():
-            g = _local(grads[name]).to(F32)
-            m, v, p = _local(state["m"][name]), _local(state["v"][name]), _local(p)
-            m.mul_(b1).add_((1 - b1) * g)  # b1·m + (1 - b1)·g
-            v.mul_(b2).add_((1 - b2) * g * g)
-            denom = (v / c2).sqrt_().add_(eps)
-            p32 = p.to(F32)
-            delta = (m / c1).div_(denom).add_(weight_decay * p32)
-            p.copy_(p32 - lr * delta)
-        state["step"] = step
-        return params, state
+        with telemetry.span("train/optimizer"):
+            step = state["step"] + 1
+            t = step.to(F32)
+            c1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
+            c2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
+            for name, p in params.items():
+                g = _local(grads[name]).to(F32)
+                m, v, p = _local(state["m"][name]), _local(state["v"][name]), _local(p)
+                m.mul_(b1).add_((1 - b1) * g)  # b1·m + (1 - b1)·g
+                v.mul_(b2).add_((1 - b2) * g * g)
+                denom = (v / c2).sqrt_().add_(eps)
+                p32 = p.to(F32)
+                delta = (m / c1).div_(denom).add_(weight_decay * p32)
+                p.copy_(p32 - lr * delta)
+            state["step"] = step
+            return params, state
 
     return Optimizer(init=init, update=update, name="adamw")
 
@@ -142,39 +144,40 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def update(grads, state, params):
-        step = state["step"] + 1
-        t = step.to(F32)
-        beta = 1.0 - t ** (-decay)
-        for name, param in params.items():
-            g = _local(grads[name]).to(F32)
-            s = {k: _local(v) for k, v in state["s"][name].items()}
-            p = _local(param)
-            g2 = g * g + eps
-            if "vr" in s:
-                n_last, n_second = param.shape[-1], param.shape[-2]
-                # the means over a split dim: sums over its ranks, then / its size
-                mean_r = _sum(g2.sum(dim=-1), _split_groups(param, [-1])) / n_last
-                mean_c = _sum(g2.sum(dim=-2), _split_groups(param, [-2])) / n_second
-                s["vr"].mul_(beta).add_((1 - beta) * mean_r)
-                s["vc"].mul_(beta).add_((1 - beta) * mean_c)
-                denom = _sum(s["vr"].sum(dim=-1, keepdim=True),
-                             _split_groups(param, [-2])) / n_second
-                r = (s["vr"] / torch.clamp(denom, min=eps))[..., None]
-                u = g / torch.sqrt(torch.clamp(r * s["vc"][..., None, :], min=eps))
-            else:
-                s["v"].mul_(beta).add_((1 - beta) * g2)
-                u = g / torch.sqrt(torch.clamp(s["v"], min=eps))
-            # the RMS of the whole update
-            ms = _sum((u * u).sum(), _split_groups(param, range(param.ndim))) / param.numel()
-            rms = torch.sqrt(ms + 1e-12)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            p32 = p.to(F32)
-            p_new = p32 - lr * u
-            if weight_decay:
-                p_new = p_new - lr * weight_decay * p32
-            p.copy_(p_new)
-        state["step"] = step
-        return params, state
+        with telemetry.span("train/optimizer"):
+            step = state["step"] + 1
+            t = step.to(F32)
+            beta = 1.0 - t ** (-decay)
+            for name, param in params.items():
+                g = _local(grads[name]).to(F32)
+                s = {k: _local(v) for k, v in state["s"][name].items()}
+                p = _local(param)
+                g2 = g * g + eps
+                if "vr" in s:
+                    n_last, n_second = param.shape[-1], param.shape[-2]
+                    # the means over a split dim: sums over its ranks, then / its size
+                    mean_r = _sum(g2.sum(dim=-1), _split_groups(param, [-1])) / n_last
+                    mean_c = _sum(g2.sum(dim=-2), _split_groups(param, [-2])) / n_second
+                    s["vr"].mul_(beta).add_((1 - beta) * mean_r)
+                    s["vc"].mul_(beta).add_((1 - beta) * mean_c)
+                    denom = _sum(s["vr"].sum(dim=-1, keepdim=True),
+                                 _split_groups(param, [-2])) / n_second
+                    r = (s["vr"] / torch.clamp(denom, min=eps))[..., None]
+                    u = g / torch.sqrt(torch.clamp(r * s["vc"][..., None, :], min=eps))
+                else:
+                    s["v"].mul_(beta).add_((1 - beta) * g2)
+                    u = g / torch.sqrt(torch.clamp(s["v"], min=eps))
+                # the RMS of the whole update
+                ms = _sum((u * u).sum(), _split_groups(param, range(param.ndim))) / param.numel()
+                rms = torch.sqrt(ms + 1e-12)
+                u = u / torch.clamp(rms / clip_threshold, min=1.0)
+                p32 = p.to(F32)
+                p_new = p32 - lr * u
+                if weight_decay:
+                    p_new = p_new - lr * weight_decay * p32
+                p.copy_(p_new)
+            state["step"] = step
+            return params, state
 
     return Optimizer(init=init, update=update, name="adafactor")
 

@@ -15,6 +15,7 @@ import contextlib
 import torch
 import torch.distributed as dist
 
+from repro_torch import telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.layers import Runtime, _is_dtensor
@@ -49,24 +50,25 @@ def global_norm(grads) -> torch.Tensor:
     squares, summed over the mesh dims that split the leaf (one all-reduce
     per mesh group of leaves), so that a leaf every rank holds whole counts
     once."""
-    total = torch.zeros((), dtype=F32)
-    sums: dict = {}
-    for g in grads.values():
-        loc = _local(g).to(F32)
-        ss = torch.sum(loc * loc)
-        total = total.to(ss.device)
-        if not _is_dtensor(g):
+    with telemetry.span("train/global_norm"):
+        total = torch.zeros((), dtype=F32)
+        sums: dict = {}
+        for g in grads.values():
+            loc = _local(g).to(F32)
+            ss = torch.sum(loc * loc)
+            total = total.to(ss.device)
+            if not _is_dtensor(g):
+                total = total + ss
+                continue
+            dims = tuple(i for i, pl in enumerate(g.placements) if pl.is_shard())
+            key = (id(g.device_mesh), dims)
+            mesh, acc = sums.get(key, (g.device_mesh, 0.0))
+            sums[key] = (mesh, acc + ss)
+        for (_, dims), (mesh, ss) in sums.items():
+            for i in dims:
+                dist.all_reduce(ss, group=mesh.get_group(i))
             total = total + ss
-            continue
-        dims = tuple(i for i, pl in enumerate(g.placements) if pl.is_shard())
-        key = (id(g.device_mesh), dims)
-        mesh, acc = sums.get(key, (g.device_mesh, 0.0))
-        sums[key] = (mesh, acc + ss)
-    for (_, dims), (mesh, ss) in sums.items():
-        for i in dims:
-            dist.all_reduce(ss, group=mesh.get_group(i))
-        total = total + ss
-    return torch.sqrt(total)
+        return torch.sqrt(total)
 
 
 HOLD_SHARE = 0.25  # of the card's memory a mesh step may hold moved weights in
@@ -107,7 +109,7 @@ def make_train_step(cfg: ModelConfig, runtime: Runtime, optimizer: Optimizer,
         extra = {k: v for k, v in micro.items() if k not in ("tokens", "labels")}
         return lm_loss(lm, cfg, runtime, micro["tokens"], micro["labels"], extra)
 
-    def train_step(lm, opt_state, batch):
+    def step(lm, opt_state, batch):
         params = dict(lm.named_parameters())
         for p in params.values():
             p.grad = None
@@ -150,6 +152,10 @@ def make_train_step(cfg: ModelConfig, runtime: Runtime, optimizer: Optimizer,
         gnorm = global_norm(grads)
         optimizer.update(grads, opt_state, params)
         return lm, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+    def train_step(lm, opt_state, batch):
+        with telemetry.span("train/step"):
+            return step(lm, opt_state, batch)
 
     return train_step
 
